@@ -1,0 +1,75 @@
+"""Greedy NMS over fixed-capacity candidate sets (axis-aligned IoU).
+
+Counterpart of ``cagroup3d_tpu/core/nms.py`` for the ScanNet path
+(``rotated=False``, pcdet's nms_normal_gpu).  The classes are a batch
+axis: one greedy pass in score order over the candidates suppresses in
+every class at once.  Ties break toward the lower index everywhere, as
+``jax.lax.top_k`` and the stable ``jnp.argsort`` do.
+"""
+from __future__ import annotations
+
+import torch
+
+from .geometry import iou_bev_aligned, pairwise
+
+NEG_INF = -1e10
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """Top-k along the last axis, ties to the lower index: (values, idx)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """boxes7 [..., N, 7], scores/valid [..., N] -> keep bool[..., N]
+    (original order), batched over the leading axes."""
+    n = boxes7.shape[-2]
+    s = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    order = torch.argsort(-s, dim=-1, stable=True)
+    b = torch.gather(boxes7, -2, order[..., None].expand_as(boxes7))
+    v = torch.gather(valid, -1, order)
+    over = pairwise(iou_bev_aligned, b, b) > iou_thr          # [..., N, N]
+    keep = torch.zeros_like(v)
+    suppressed = torch.zeros_like(v)
+    for i in range(n):
+        k = v[..., i] & ~suppressed[..., i]
+        keep[..., i] = k
+        suppressed |= k[..., None] & over[..., i, :]
+    out = torch.zeros_like(keep)
+    out.scatter_(-1, order, keep)
+    return out
+
+
+def multiclass_nms(bboxes: torch.Tensor, scores: torch.Tensor,
+                   valid: torch.Tensor, score_thr: float, iou_thr: float,
+                   per_cls_cap: int, out_cap: int):
+    """Per-class NMS (CAGroup3DHead._nms, axis-aligned).
+
+    bboxes [P, 7], scores [P, C], valid [P].  Candidates per class: the top
+    ``per_cls_cap`` above ``score_thr``; output: the top ``out_cap`` kept
+    detections over all classes.  Returns (boxes [out_cap, 7],
+    scores [out_cap], labels i64[out_cap], valid [out_cap])."""
+    P, C = scores.shape
+    cls_scores = scores.T                                        # [C, P]
+    cand = valid[None, :] & (cls_scores > score_thr)
+    top_s, idx = topk_stable(
+        torch.where(cand, cls_scores, torch.full_like(cls_scores, NEG_INF)),
+        per_cls_cap)
+    sel_ok = top_s > NEG_INF / 2
+    b = bboxes[idx]                                              # [C, K, 7]
+    s = torch.gather(cls_scores, 1, idx)
+    keep = greedy_nms(b, s, sel_ok, iou_thr)
+    labels = torch.arange(C, device=scores.device)[:, None].expand_as(keep)
+    s_flat = s.reshape(-1)
+    top, idx2 = topk_stable(
+        torch.where(keep.reshape(-1), s_flat, torch.full_like(s_flat, NEG_INF)),
+        out_cap)
+    ok = top > NEG_INF / 2
+    zero = torch.zeros((), device=scores.device)
+    out_boxes = torch.where(ok[:, None], b.reshape(-1, 7)[idx2], zero)
+    out_scores = torch.where(ok, s_flat[idx2], zero)
+    out_labels = torch.where(ok, labels.reshape(-1)[idx2],
+                             torch.zeros_like(idx2))
+    return out_boxes, out_scores, out_labels, ok

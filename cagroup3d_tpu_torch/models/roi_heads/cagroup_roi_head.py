@@ -1,0 +1,151 @@
+"""CAGroup3D two-stage RoI head (eval): sparse RoI grid pooling + MLP.
+
+Counterpart of ``cagroup3d_tpu/models/roi_heads/cagroup_roi_head.py``.  Per
+roi a GRID_SIZE^3 grid of points is deduplicated on the backbone's stride-2
+lattice, convolved at those query coordinates (k5 conv-at-coords on the
+backbone voxels, kernel K1), scattered back per roi and centre-pooled with
+one dense [G^3*C -> C] contraction, then refined by a Linear+BN+ReLU MLP,
+decoded and per-class NMS'd.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...core.gather import take_rows_masked
+from ...core.module import (Ctx, Params, apply_bn, apply_linear, init_bn,
+                            init_conv, init_linear, register_flat)
+from ...core.nms import multiclass_nms
+from ...core.norm import elu, relu
+from ...core.sparse import SparseTensor, zero_invalid
+from ...core.sparse_conv import scan_conv_grouped
+from ...core.voxelize import unique_voxels
+from ..model_utils.cagroup_utils import CAGroupResidualCoder
+
+
+class CAGroup3DRoIHead(nn.Module):
+    def __init__(self, model_cfg, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = model_cfg
+        if c.CODE_SIZE != 6 or c.get("ENCODE_SINCOS", False):
+            raise NotImplementedError("the yaw (rotated) RoI path is not ported")
+        self.num_class = c.NUM_CLASSES
+        self.grid_size = c.GRID_SIZE
+        self.voxel_size = c.VOXEL_SIZE
+        self.coord_key = c.COORD_KEY
+        self.mlps = c.MLPS
+        self.enlarge_ratio = c.get("ENLARGE_RATIO", False)
+        self.reg_fc = c.get("REG_FC", [256, 256])
+        self.test_score_thr = c.get("TEST_SCORE_THR", 0.01)
+        self.test_iou_thr = c.get("TEST_IOU_THR", 0.5)
+        self.roi_conv_kernel = c.get("ROI_CONV_KERNEL", 5)
+        self.grid_cap = int(c.get("GRID_CAP", 16384))
+        self.nms_per_cls_cap = int(c.get("NMS_PER_CLS_CAP", 128))
+        self.max_out = int(c.get("MAX_OUT", 128))
+        self.box_coder = CAGroupResidualCoder()
+        P, S = self._init(generator or torch.Generator().manual_seed(0))
+        register_flat(self, P, S)
+
+    def _init(self, gen: torch.Generator):
+        P: Params = {}
+        S: Params = {}
+        mlp = self.mlps[0]
+        pl = "roi_grid_pool_layers.0"
+        init_conv(P, gen, pl + ".grid_conv", self.roi_conv_kernel, mlp[0],
+                  mlp[1], init="normal")
+        init_bn(P, S, pl + ".grid_bn", mlp[1])
+        init_conv(P, gen, pl + ".pooling_conv", self.grid_size, mlp[1],
+                  mlp[2], init="normal")
+        init_bn(P, S, pl + ".pooling_bn", mlp[2])
+        cin = sum(m[-1] for m in self.mlps)
+        idx = 0
+        for k, cout in enumerate(self.reg_fc):
+            init_linear(P, gen, f"reg_fc_layers.{idx}", cin, cout, bias=False,
+                        init="xavier")
+            init_bn(P, S, f"reg_fc_layers.{idx + 1}", cout)
+            idx += 4 if k != len(self.reg_fc) - 1 else 3
+            cin = cout
+        init_linear(P, gen, "reg_pred_layer", cin, self.box_coder.code_size,
+                    bias=True, init="normal")
+        return P, S
+
+    # ------------------------------------------------------------------
+    def get_dense_grid_points(self, rois: torch.Tensor) -> torch.Tensor:
+        """[R, 7] -> local grid points [R, G^3, 3]."""
+        g = self.grid_size
+        idx = np.stack(np.meshgrid(np.arange(g), np.arange(g), np.arange(g),
+                                   indexing="ij"), -1).reshape(-1, 3)
+        idx = torch.as_tensor(idx, dtype=torch.float32, device=rois.device)
+        size = rois[:, None, 3:6]
+        return (idx[None] + 0.5) / g * size - size / 2
+
+    def roi_grid_pool(self, P, S, ctx: Ctx, st: SparseTensor, rois,
+                      roi_valid, prefix: str):
+        """rois [R, 7] (pcdet heading) -> pooled [R, C_out]."""
+        pl = prefix + ".roi_grid_pool_layers.0"
+        R = rois.shape[0]
+        g3 = self.grid_size ** 3
+        local = self.get_dense_grid_points(rois)                  # [R, G3, 3]
+        pts = (local + rois[:, None, :3]).reshape(R * g3, 3)
+        pvalid = roi_valid.repeat_interleave(g3)
+        cell = self.voxel_size * self.coord_key
+        lat = torch.floor(pts / cell).to(torch.int32)
+        ded, inv = unique_voxels(lat, torch.zeros(R * g3, 1, device=pts.device),
+                                 pvalid, self.grid_cap, mode="first",
+                                 stats=ctx.stats, stat_name="roi_grid")
+        # conv of the backbone voxels at the deduplicated grid (kernel K1)
+        f = scan_conv_grouped(st.coords, st.valid, st.feats, st.stride,
+                              ded.coords * self.coord_key, ded.valid,
+                              self.roi_conv_kernel,
+                              P[pl + ".grid_conv.kernel"])
+        f = apply_bn(P, S, ctx, pl + ".grid_bn", f, ded.valid)
+        f = zero_invalid(elu(f), ded.valid)
+        # back to per-roi grids; dropped grid points get zero features
+        grid_feats = take_rows_masked(f, inv).reshape(R, g3, -1)
+        pooled = torch.einsum("rgc,gcd->rd", grid_feats,
+                              P[pl + ".pooling_conv.kernel"])
+        pooled = apply_bn(P, S, ctx, pl + ".pooling_bn", pooled, roi_valid)
+        return zero_invalid(pooled, roi_valid)
+
+    def reg_branch(self, P, S, ctx: Ctx, feats, valid, prefix: str):
+        x, idx = feats, 0
+        for k in range(len(self.reg_fc)):
+            x = apply_linear(P, f"{prefix}.reg_fc_layers.{idx}", x)
+            x = apply_bn(P, S, ctx, f"{prefix}.reg_fc_layers.{idx + 1}", x,
+                         valid)
+            x = zero_invalid(relu(x), valid)
+            idx += 4 if k != len(self.reg_fc) - 1 else 3
+        return apply_linear(P, prefix + ".reg_pred_layer", x)
+
+    def forward(self, P, S, ctx: Ctx, st: SparseTensor, rois, roi_scores,
+                roi_labels, roi_valid, prefix: str = "roi_head"):
+        """One scene, eval: pool and regress every roi, decode, per-class
+        NMS (forward_test of the JAX package)."""
+        rois_pc = rois.clone()
+        rois_pc[:, 6] = -rois_pc[:, 6]
+        if self.enlarge_ratio:
+            rois_pc[:, 3:6] = rois_pc[:, 3:6] * self.enlarge_ratio
+        pooled = self.roi_grid_pool(P, S, ctx, st, rois_pc, roi_valid, prefix)
+        rcnn_reg = self.reg_branch(P, S, ctx, pooled, roi_valid, prefix)
+        boxes = self.decode_boxes(rois_pc, rcnn_reg)
+        onehot = nn.functional.one_hot(roi_labels.long(), self.num_class)
+        scores = roi_scores[:, None] * onehot.to(roi_scores.dtype)
+        b, s, l, v = multiclass_nms(
+            boxes, scores, roi_valid & (rois_pc.abs().sum(-1) > 0),
+            score_thr=self.test_score_thr, iou_thr=self.test_iou_thr,
+            per_cls_cap=self.nms_per_cls_cap, out_cap=self.max_out)
+        b = b.clone()
+        b[:, 6] = 0.0
+        return dict(batch_box_preds=b, batch_score_preds=s,
+                    batch_cls_preds=l, batch_pred_valid=v, rcnn_reg=rcnn_reg)
+
+    def decode_boxes(self, rois_pc, rcnn_reg):
+        """Axis-aligned residual decode; heading 0 appended."""
+        local = rois_pc[:, :6].clone()
+        local[:, 0:3] = 0.0
+        dec = self.box_coder.decode(rcnn_reg, local)
+        dec = torch.cat([dec[:, 0:3] + rois_pc[:, 0:3], dec[:, 3:]], dim=-1)
+        return torch.cat([dec, torch.zeros_like(dec[:, :1])], dim=-1)
