@@ -1,4 +1,4 @@
-"""Parameters under the JAX package's flat names, eval context, init.
+"""Parameters under the JAX package's flat names, forward context, init.
 
 Counterpart of ``cagroup3d_tpu/core/module.py``.  The JAX package keeps a
 model's parameters in flat ``{path: array}`` dicts named after the
@@ -6,30 +6,61 @@ reference's torch ``state_dict`` (``backbone_3d.layer1.0.conv1.kernel``).
 Here they live in an ``nn.Module`` tree whose ``named_parameters()`` /
 ``named_buffers()`` give exactly those names (batch-norm running
 statistics are buffers), and the forward code reads them as flat dicts
-``P`` / ``S``, as the JAX code does.  Initializers take an explicit
-``torch.Generator``; they draw other numbers than ``jax.random`` for the
-same seed.
+``P`` / ``S``, as the JAX code does.  Parameters are trainable; the
+eval entry points run under ``torch.no_grad()``.  Initializers take an
+explicit ``torch.Generator``; they draw other numbers than ``jax.random``
+for the same seed.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from .norm import masked_batch_norm
+from .norm import SceneSync, masked_batch_norm, masked_batch_stats
 
 Params = Dict[str, torch.Tensor]
 
 
 class Ctx:
-    """Per-forward context (eval): capacity-overflow counters and a cache of
-    coordinate reductions keyed by the identity of the reduced coords."""
+    """Per-forward context of one scene: the train flag, the scene's random
+    stream (an explicit CPU ``torch.Generator``: its draws do not depend on
+    the device the model runs on), the BN running-stat ``updates`` of a
+    training forward, the step's ``SceneSync`` (BN statistics pooled over
+    the scenes of a step) with this scene's index, the training
+    ``drop_offset`` of the capacity windows, capacity-overflow counters and
+    a cache of coordinate reductions keyed by the identity of the reduced
+    coords."""
 
-    def __init__(self):
+    def __init__(self, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 sync: Optional[SceneSync] = None, scene: int = 0):
+        self.train = train
+        self.generator = generator
+        self.sync = sync
+        self.scene = scene
+        self.drop_offset: Optional[int] = None
+        self.updates: Params = {}
         self.stats: Params = {}
         self.cache: dict = {}
+
+    def rand(self, *shape) -> torch.Tensor:
+        """Uniform [0, 1) draws on the CPU from the scene's stream."""
+        if self.generator is None:
+            raise ValueError("Ctx needs a generator for stochastic ops")
+        return torch.rand(*shape, generator=self.generator)
+
+    def randn(self, *shape) -> torch.Tensor:
+        if self.generator is None:
+            raise ValueError("Ctx needs a generator for stochastic ops")
+        return torch.randn(*shape, generator=self.generator)
+
+    def randint(self, high: int, *shape) -> torch.Tensor:
+        if self.generator is None:
+            raise ValueError("Ctx needs a generator for stochastic ops")
+        return torch.randint(0, high, shape, generator=self.generator)
 
 
 # ---------------------------------------------------------------------------
@@ -52,8 +83,7 @@ def register_flat(root: nn.Module, params: Params, buffers: Params) -> None:
             if is_buffer:
                 mod.register_buffer(leaf, t)
             else:
-                mod.register_parameter(leaf, nn.Parameter(
-                    t, requires_grad=False))
+                mod.register_parameter(leaf, nn.Parameter(t))
 
 
 def flat_state(module: nn.Module, prefix: str = ""):
@@ -118,17 +148,44 @@ def init_linear(P: Params, gen: torch.Generator, path: str, cin: int,
 
 
 # ---------------------------------------------------------------------------
-# apply helpers (eval)
+# apply helpers
 # ---------------------------------------------------------------------------
 
 def apply_bn(P: Params, S: Params, ctx: Ctx, path: str, x: torch.Tensor,
-             mask: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    return masked_batch_norm(x, mask, P[path + ".weight"],
-                             P[path + ".bias"], S[path + ".running_mean"],
-                             S[path + ".running_var"], eps=eps)
+             mask: torch.Tensor, eps: float = 1e-5,
+             momentum: float = 0.1) -> torch.Tensor:
+    """Masked BN of x [..., N, C] under ``path``.  Per-class stacks pass
+    x [n_cls, N, C] with [n_cls, C] parameters (each class its own
+    statistics).  Training records the new running stats in
+    ``ctx.updates``."""
+    w, b = P[path + ".weight"], P[path + ".bias"]
+    rm, rv = S[path + ".running_mean"], S[path + ".running_var"]
+    if w.dim() == 2:                      # per-class [n_cls, C] stacks
+        w, b, rm, rv = (t[:, None] for t in (w, b, rm, rv))
+    stats = None
+    if ctx.train:
+        stats, (nrm, nrv) = masked_batch_stats(
+            x, mask, rm, rv, momentum=momentum, sync=ctx.sync,
+            scene=ctx.scene)
+        shape = S[path + ".running_mean"].shape
+        ctx.updates[path + ".running_mean"] = nrm.reshape(shape)
+        ctx.updates[path + ".running_var"] = nrv.reshape(shape)
+    return masked_batch_norm(x, mask, w, b, rm, rv, eps=eps, stats=stats)
 
 
 def apply_linear(P: Params, path: str, x: torch.Tensor) -> torch.Tensor:
     y = x @ P[path + ".weight"]
     b = P.get(path + ".bias")
     return y + b if b is not None else y
+
+
+def dropout(ctx: Ctx, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout in training: keep each element with probability
+    1 - rate (a uniform draw below it, as ``jax.random.bernoulli`` does)
+    and scale the kept ones by 1 / (1 - rate)."""
+    if not ctx.train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = (ctx.rand(*x.shape) < keep).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))

@@ -28,7 +28,7 @@ def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
     n = boxes7.shape[-2]
     s = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     order = torch.argsort(-s, dim=-1, stable=True)
-    b = torch.gather(boxes7, -2, order[..., None].expand_as(boxes7))
+    b = torch.gather(boxes7.detach(), -2, order[..., None].expand_as(boxes7))
     v = torch.gather(valid, -1, order)
     over = pairwise(iou_bev_aligned, b, b) > iou_thr          # [..., N, N]
     keep = torch.zeros_like(v)

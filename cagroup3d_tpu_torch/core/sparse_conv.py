@@ -1,11 +1,11 @@
 """Sparse convolution execution: plain gather-GEMMs.
 
-Counterpart of ``cagroup3d_tpu/core/sparse_conv.py`` (eval forward only).
-``gather_gemm`` runs a conv from a precomputed neighbour table; the
-``scan_conv_grouped*`` forms are convs over key-indexed tables and go
-through kernel K1 (``ops/sparse_conv.py``), whose plain version runs on CPU
-tensors; ``generative_up_classes`` is the head's exact-tiling transposed
-conv.  Weights are ``[K^3, Cin, Cout]`` in ``kernel_offsets`` order; feature
+Counterpart of ``cagroup3d_tpu/core/sparse_conv.py``.  ``gather_gemm``
+runs a conv from a precomputed neighbour table; the ``scan_conv_grouped*``
+forms are convs over key-indexed tables and go through kernel K1
+(``ops/sparse_conv.py``, differentiable: its backward is K1 and K3), whose
+plain versions run on CPU tensors; ``generative_up_classes`` is the head's
+exact-tiling transposed conv.  Autograd differentiates the plain forms.  Weights are ``[K^3, Cin, Cout]`` in ``kernel_offsets`` order; feature
 rows and weights are rounded to bf16 and accumulated in f32.
 """
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""Quantization + deduplication (voxelization) with static capacity, eval.
+"""Quantization + deduplication (voxelization) with static capacity.
 
 Counterpart of ``cagroup3d_tpu/core/voxelize.py``: pack coords to int32
 keys, one stable sort, head-flag unique, reduce features per voxel.  Under
-capacity overflow the voxels with the ``cap`` smallest keys are kept (the
-JAX package's eval identity window), so packing and tie-breaking match it
-exactly.
+capacity overflow eval keeps the voxels with the ``cap`` smallest keys (the
+identity window); training passes a ``drop_offset`` and keeps a cyclic
+window of ``cap`` consecutive key ranks starting at ``drop_offset mod n``
+(still key-sorted, wrapping around), so the dropped region moves every
+step.  Packing, windows and tie-breaking match the JAX package exactly.
 """
 from __future__ import annotations
 
@@ -41,23 +43,54 @@ def _count_sorted(u: torch.Tensor, m, strict: bool) -> torch.Tensor:
         torch.int32)
 
 
-def _window_ranks(n_unique: torch.Tensor, cap: int) -> torch.Tensor:
-    """Voxel ranks kept under capacity overflow: the identity window
-    [0, cap) of the key-rank order (eval).  n_unique i32[G] or scalar;
-    returns i32[G, cap]."""
-    n = n_unique.reshape(-1)
-    s = torch.arange(cap, dtype=torch.int32, device=n.device)
-    return s[None].expand(n.shape[0], cap)
+def _window_ranks(n_unique: torch.Tensor, cap: int,
+                  drop_offset: Optional[int] = None) -> torch.Tensor:
+    """Voxel ranks kept under capacity overflow: the cyclic window
+    [o, o + cap) mod n of the key-rank order with o = drop_offset mod n,
+    emitted in ascending rank (slots s < wrap hold ranks s, the rest
+    ranks s + o - wrap); no overflow or no drop_offset (eval) gives the
+    identity window.  n_unique i32[G] or scalar; returns i32[G, cap]."""
+    n = n_unique.reshape(-1, 1).to(torch.int32)
+    s = torch.arange(cap, dtype=torch.int32, device=n.device)[None]
+    if drop_offset is None:
+        return s.expand(n.shape[0], cap)
+    o, wrap = _window_params(n, cap, drop_offset)
+    return torch.where(s < wrap, s, s + o - wrap)
+
+
+def _window_params(n: torch.Tensor, cap: int, drop_offset: int):
+    """(o, wrap) of the cyclic window for unique counts n (any shape)."""
+    over = n > cap
+    o = torch.where(over, torch.remainder(torch.full_like(n, drop_offset),
+                                          n.clamp(min=1)),
+                    torch.zeros_like(n))
+    wrap = torch.where(over, (o + cap - n).clamp(min=0), torch.zeros_like(n))
+    return o, wrap
+
+
+def _window_slots(uid: torch.Tensor, ok: torch.Tensor, n_unique, cap: int,
+                  drop_offset: Optional[int]):
+    """Inverse of ``_window_ranks`` per sorted row: (slot, kept) for rank
+    ``uid`` [..., P] of groups with ``n_unique`` [...] voxels."""
+    if drop_offset is None:
+        return uid, ok & (uid < cap)
+    o, wrap = _window_params(n_unique.reshape(uid.shape[:-1] + (1,))
+                             .to(torch.int32), cap, drop_offset)
+    slot = torch.where(uid < wrap, uid, uid - o + wrap)
+    kept = ok & ((uid < wrap) | (uid >= o)) & (slot < cap) & (slot >= 0)
+    return slot, kept
 
 
 def unique_voxels(lat: torch.Tensor, feats: torch.Tensor,
                   valid: torch.Tensor, cap: int, mode: str = "mean",
-                  stats: Optional[dict] = None, stat_name: str = "unique"
+                  stats: Optional[dict] = None, stat_name: str = "unique",
+                  drop_offset: Optional[int] = None
                   ) -> Tuple[SparseTensor, torch.Tensor]:
     """Deduplicate lattice coords i32[P, 3], reducing feats [P, F] per
     voxel ('mean' == ME UNWEIGHTED_AVERAGE, 'first' == the first point in
-    row order).  Returns (SparseTensor stride 1, inverse i32[P]: output
-    row of each point, -1 if dropped or invalid)."""
+    row order); ``drop_offset`` picks the training capacity window.
+    Returns (SparseTensor stride 1, inverse i32[P]: output row of each
+    point, -1 if dropped or invalid)."""
     P = lat.shape[0]
     dev = lat.device
     keys = pack_coords(lat, valid)
@@ -69,7 +102,7 @@ def unique_voxels(lat: torch.Tensor, feats: torch.Tensor,
     if stats is not None:
         stats[f"overflow/{stat_name}"] = (n_uni - cap).clamp(min=0)
 
-    vq = _window_ranks(n_uni, cap)                                 # [1, cap]
+    vq = _window_ranks(n_uni, cap, drop_offset)                    # [1, cap]
     big = torch.full_like(uid_sorted, 1 << 30)
     uid2 = torch.where(ok, uid_sorted, big)[None]
     start = _count_sorted(uid2, vq, strict=True)[0]
@@ -82,16 +115,14 @@ def unique_voxels(lat: torch.Tensor, feats: torch.Tensor,
     out_coords = torch.where(out_valid[:, None],
                              take_rows(lat.to(torch.int32), first_row), pad)
 
-    kept = ok & (uid_sorted < cap)
-    slot = torch.where(kept, uid_sorted, torch.full_like(uid_sorted, -1))
+    slot, kept = _window_slots(uid_sorted, ok, n_uni, cap, drop_offset)
     uid = torch.empty(P, dtype=torch.int32, device=dev)
-    uid[order] = slot
+    uid[order] = torch.where(kept, slot, torch.full_like(slot, -1))
 
     if mode == "mean":
         F = feats.shape[-1]
         fs = zero_invalid(feats, valid)
-        seg = torch.where(kept, uid_sorted,
-                          torch.full_like(uid_sorted, cap)).long()
+        seg = torch.where(kept, slot, torch.full_like(slot, cap)).long()
         sums = torch.zeros(cap + 1, F, dtype=torch.float32, device=dev)
         sums.index_add_(0, seg, fs[order].to(torch.float32))
         out_feats = (sums[:cap] / cnt.clamp(min=1)[:, None]).to(feats.dtype)
@@ -126,17 +157,23 @@ def stride_reduce_coords(st: SparseTensor, factor: int, cap: int,
 
 def unique_voxels_classes_paired(lat: torch.Tensor, feats: torch.Tensor,
                                  valid: torch.Tensor, cap_fine: int,
-                                 cap_coarse: int, coarse_factor: int):
+                                 cap_coarse: int, coarse_factor: int,
+                                 train: bool = False,
+                                 drop_offset: Optional[int] = None):
     """The dense head's per-class fine map AND its ``coarse_factor``-times
-    coarser map from one sort (eval).
+    coarser map from one sort.
 
     lat i32[G, P, 3] fine lattice coords; feats [P, F] shared by the
     groups; valid bool[G, P] per-group selection.  The fine map is the
-    per-group segment mean over the key-sorted rows (kernel K2,
-    ops/segsum.py) in bf16 rows with f32 sums; the coarse map is the
-    count-weighted mean of fine voxels over fine // coarse_factor.
-    Returns ((coords, feats, valid) fine, (coords, feats, valid) coarse,
-    (overflow_fine i32[G], overflow_coarse i32[G])).
+    per-group segment mean over the key-sorted rows in bf16 rows with f32
+    sums: in eval the first ``cap_fine`` keys through kernel K2
+    (ops/segsum.py); in training (``train``) the cyclic ``drop_offset``
+    window through ``index_add_``, which autograd differentiates (K2 has
+    no backward, and the JAX package gates its kernel off in training the
+    same way).  The coarse map is the count-weighted mean of fine voxels
+    over fine // coarse_factor.  Returns ((coords, feats, valid) fine,
+    (coords, feats, valid) coarse, (overflow_fine i32[G],
+    overflow_coarse i32[G])).
     """
     G, P, _ = lat.shape
     keys = pack_coords(lat, valid)
@@ -147,11 +184,15 @@ def unique_voxels_classes_paired(lat: torch.Tensor, feats: torch.Tensor,
     ok = sk != INVALID_KEY
     n_unique_f = (_heads(sk) & ok).sum(1, dtype=torch.int32)
     of_fine = (n_unique_f - cap_fine).clamp(min=0)
-    f_sum, f_cnt = segment_sums(sk.contiguous(), feats_s.contiguous(),
-                                cap_fine)
+    if train:
+        f_sum, f_cnt, start = _window_segment_sums(
+            sk, ok, feats_s, n_unique_f, cap_fine, drop_offset)
+    else:
+        f_sum, f_cnt = segment_sums(sk.contiguous(), feats_s.contiguous(),
+                                    cap_fine)
+        # first row of segment j = #rows of segments < j (sorted layout)
+        start = torch.cumsum(f_cnt, 1, dtype=torch.int32) - f_cnt
     f_valid = f_cnt > 0
-    # first row of segment j = #rows of segments < j (sorted layout)
-    start = torch.cumsum(f_cnt, 1, dtype=torch.int32) - f_cnt
     f_coords = torch.gather(
         lat_s, 1, start.clamp(0, P - 1).long()[..., None].expand(-1, -1, 3))
     f_coords = torch.where(f_valid[..., None], f_coords,
@@ -160,6 +201,30 @@ def unique_voxels_classes_paired(lat: torch.Tensor, feats: torch.Tensor,
     (cc, cf, cv), of_coarse = _paired_coarse(
         cap_coarse, coarse_factor, f_coords, f_valid, f_sum, f_cnt)
     return (f_coords, f_feats, f_valid), (cc, cf, cv), (of_fine, of_coarse)
+
+
+def _window_segment_sums(sk, ok, feats_s, n_unique, cap: int,
+                         drop_offset: Optional[int]):
+    """Training fine map: per group, f32 sums and counts of the key runs
+    whose ranks the cyclic window keeps, and each kept run's first sorted
+    row.  sk i32[G, P] sorted keys, feats_s bf16[G, P, F] sorted rows."""
+    G, P, F = feats_s.shape
+    uid = torch.cumsum((_heads(sk) & ok).to(torch.int32), 1,
+                       dtype=torch.int32) - 1
+    vq = _window_ranks(n_unique, cap, drop_offset)               # [G, cap]
+    uid2 = torch.where(ok, uid, torch.full_like(uid, 1 << 30))
+    start = _count_sorted(uid2, vq, strict=True)
+    end = _count_sorted(uid2, vq, strict=False) - 1
+    cnt = (end - start + 1).clamp(min=0)
+    slot, kept = _window_slots(uid, ok, n_unique, cap, drop_offset)
+    base = (torch.arange(G, device=sk.device, dtype=torch.int32)
+            * (cap + 1))[:, None]
+    seg = (torch.where(kept, slot, torch.full_like(slot, cap)) + base
+           ).reshape(-1).long()
+    sums = torch.zeros(G * (cap + 1), F, dtype=torch.float32,
+                       device=sk.device)
+    sums = sums.index_add(0, seg, feats_s.reshape(-1, F).to(torch.float32))
+    return sums.reshape(G, cap + 1, F)[:, :cap], cnt, start
 
 
 def _paired_coarse(cap_coarse, coarse_factor, f_coords, f_valid, f_sum,

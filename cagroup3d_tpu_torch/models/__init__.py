@@ -5,22 +5,29 @@ from typing import Optional
 
 import torch
 
+from ..config import EasyDict, cfg_from_yaml_file
 from .detectors.cagroup3d import CAGroup3D
 
 
 def load_model_config(cfg_path: str):
-    """(model_cfg, class_names) of a repository YAML, through the JAX
-    package's config loader (``_BASE_CONFIG_`` includes resolved)."""
-    from cagroup3d_tpu.config import EasyDict, cfg_from_yaml_file
+    """(model_cfg, class_names) of a repository YAML (``_BASE_CONFIG_``
+    includes resolved)."""
     cfg = cfg_from_yaml_file(cfg_path, EasyDict())
     return cfg.MODEL, list(cfg.CLASS_NAMES)
 
 
+def load_config(cfg_path: str) -> EasyDict:
+    """The whole YAML (``MODEL``, ``OPTIMIZATION``, ``CLASS_NAMES``, ...)."""
+    return cfg_from_yaml_file(cfg_path, EasyDict())
+
+
 def build_network(model_cfg, num_class: int,
                   generator: Optional[torch.Generator] = None,
-                  device="cpu") -> CAGroup3D:
+                  device=None) -> CAGroup3D:
     """Build the detector named by ``model_cfg.NAME`` with a seeded init
-    (``generator``; seed 0 when None) on ``device``."""
+    (``generator``; seed 0 when None) on ``device`` (the GPU unless the
+    caller passes another device; there is no CPU fallback)."""
     if model_cfg.NAME != "CAGroup3D":
         raise NotImplementedError(f"{model_cfg.NAME} is not ported yet")
+    device = torch.device("cuda") if device is None else device
     return CAGroup3D(model_cfg, num_class, generator).to(device)

@@ -1,11 +1,13 @@
-"""CAGroup3D one-stage head: semantic + vote + class-aware grouping (eval).
+"""CAGroup3D one-stage head: semantic + vote + class-aware grouping, and
+its training loss.
 
 Counterpart of ``cagroup3d_tpu/models/dense_heads/cagroup_head.py`` for
 the axis-aligned (ScanNet) path.  The class axis is a tensor axis: the
 per-class fine and expand maps are built together from one sort (kernel K2
-inside ``unique_voxels_classes_paired``), the per-class k9 / k5 convs are
-one grouped K1 launch each, and the generative k3s3 up-conv, the 1x1 fuse
-and the shared prediction heads run batched over [n_cls, CAP, ...].
+inside ``unique_voxels_classes_paired`` in eval, the differentiable
+``index_add_`` path in training), the per-class k9 / k5 convs are one
+grouped K1 launch each, and the generative k3s3 up-conv, the 1x1 fuse and
+the shared prediction heads run batched over [n_cls, CAP, ...].
 """
 from __future__ import annotations
 
@@ -15,16 +17,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.module import (Ctx, Params, init_bn, init_conv, me_default_conv,
-                            normal_conv, register_flat)
+from ...core.module import (Ctx, Params, apply_bn, init_bn, init_conv,
+                            me_default_conv, normal_conv, register_flat)
 from ...core.nms import multiclass_nms, topk_stable
-from ...core.norm import elu, masked_batch_norm
+from ...core.norm import elu
 from ...core.sparse import SparseTensor, zero_invalid
 from ...core.sparse_conv import (generative_up_classes,
                                  scan_conv_grouped_classes)
 from ...core.voxelize import unique_voxels_classes_paired
 from ..layers import act, bn, subm
+from ...utils import loss_utils as L
 from ..model_utils.cagroup_utils import bias_init_with_prob
+from .target_assigner.cagroup3d_assigner import CAGroup3DAssigner
 
 # Per-class anisotropic voxel sizes (reference cagroup_head.py:75-106).
 SCANNET_VOXELS = [
@@ -39,14 +43,10 @@ SCANNET_VOXELS = [
     [0.3453, 0.3164, 0.1491], [0.1426, 0.1477, 0.1741]]
 
 
-def _bn_elu(P, S, path: str, x, mask):
+def _bn_elu(P, S, ctx: Ctx, path: str, x, mask):
     """Per-class batch norm (each class its own statistics) and ELU over
     stacked [n_cls, N, C] maps; invalid rows zero."""
-    y = masked_batch_norm(x, mask, P[path + ".weight"][:, None],
-                          P[path + ".bias"][:, None],
-                          S[path + ".running_mean"][:, None],
-                          S[path + ".running_var"][:, None])
-    return zero_invalid(elu(y), mask)
+    return zero_invalid(elu(apply_bn(P, S, ctx, path, x, mask)), mask)
 
 
 class CAGroup3DHead(nn.Module):
@@ -72,6 +72,8 @@ class CAGroup3DHead(nn.Module):
         self.expand_cap = int(c.get("EXPAND_CAP", 2048))
         self.max_rois = int(c.get("MAX_ROIS", 256))
         self.nms_per_cls_cap = int(c.get("NMS_PER_CLS_CAP", 256))
+        self.assigner = CAGroup3DAssigner(c.ASSIGNER)
+        self.loss_cfg = c
         P, S = self._init(generator or torch.Generator().manual_seed(0))
         register_flat(self, P, S)
 
@@ -117,7 +119,11 @@ class CAGroup3DHead(nn.Module):
                 stop_after: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """st: backbone output (stride 2), one scene.  ``stop_after``
         cuts as in the JAX package: "sem_offsets" | "maps" | "cls_convs" |
-        "up_fuse" return partial dicts."""
+        "up_fuse" return partial dicts.  In training (``ctx.train``) BN
+        takes batch statistics and the class maps keep the cyclic
+        ``ctx.drop_offset`` window; the votes move the points without
+        carrying a gradient back into the offsets (the vote loss trains
+        them)."""
         pre, v = prefix, self.voxel_size
         N2 = st.cap
         dev = st.feats.device
@@ -141,8 +147,9 @@ class CAGroup3DHead(nn.Module):
         max_bound = (cmax + st.stride) * v
         min_bound = (cmin - st.stride) * v
         pts_metric = coords * v                                       # [N2, 3]
-        voted = torch.clamp(pts_metric[:, None, :] + voxel_offsets[:, None, :],
-                            min_bound, max_bound)                   # [N2, 1, 3]
+        voted = torch.clamp(
+            pts_metric[:, None, :] + voxel_offsets.detach()[:, None, :],
+            min_bound, max_bound)                                   # [N2, 1, 3]
 
         # class selection, plus the first valid voxel so no class map is empty
         sel = torch.sigmoid(sem) > semantic_threshold              # [N2, n_cls]
@@ -163,7 +170,8 @@ class CAGroup3DHead(nn.Module):
         (fc, ff, fv), (cc, cf, cv), (of_f, of_c) = \
             unique_voxels_classes_paired(lat_f, feats_all, sel_all.T.contiguous(),
                                          self.fine_cap, self.expand_cap,
-                                         self.expand)
+                                         self.expand, train=ctx.train,
+                                         drop_offset=ctx.drop_offset)
         ctx.stats["overflow/head_fine"] = of_f.sum()
         ctx.stats["overflow/head_expand"] = of_c.sum()
         if stop_after == "maps":
@@ -173,10 +181,10 @@ class CAGroup3DHead(nn.Module):
         f_out = scan_conv_grouped_classes(
             fc, fv, ff, 1, self.cls_kernel,
             P[pre + ".cls_individual_out.0.kernel"])
-        f_out = _bn_elu(P, S, pre + ".cls_individual_out.1", f_out, fv)
+        f_out = _bn_elu(P, S, ctx, pre + ".cls_individual_out.1", f_out, fv)
         e_out = scan_conv_grouped_classes(
             cc, cv, cf, 1, 5, P[pre + ".cls_individual_expand_out.0.kernel"])
-        e_out = _bn_elu(P, S, pre + ".cls_individual_expand_out.1", e_out, cv)
+        e_out = _bn_elu(P, S, ctx, pre + ".cls_individual_expand_out.1", e_out, cv)
         if stop_after == "cls_convs":
             return dict(semantic_scores=sem, f_out=f_out, e_out=e_out)
 
@@ -184,11 +192,11 @@ class CAGroup3DHead(nn.Module):
         up_out = generative_up_classes(
             cc * self.expand, cv, e_out, self.expand, fc, fv,
             P[pre + ".cls_individual_up.0.kernel"])
-        up_out = _bn_elu(P, S, pre + ".cls_individual_up.1.0", up_out, fv)
+        up_out = _bn_elu(P, S, ctx, pre + ".cls_individual_up.1.0", up_out, fv)
         fused = torch.cat([up_out, f_out], dim=-1)
         w_fuse = P[pre + ".cls_individual_fuse.0.kernel"][:, 0]  # [n_cls, 2C, C]
         fused = torch.bmm(fused, w_fuse)
-        fused = _bn_elu(P, S, pre + ".cls_individual_fuse.1", fused, fv)
+        fused = _bn_elu(P, S, ctx, pre + ".cls_individual_fuse.1", fused, fv)
         if stop_after == "up_fuse":
             return dict(semantic_scores=sem, fused=fused)
 
@@ -240,3 +248,167 @@ class CAGroup3DHead(nn.Module):
                               iou_thr=float(self.nms_cfg.IOU_THR),
                               per_cls_cap=self.nms_per_cls_cap,
                               out_cap=self.max_rois)
+
+    # ------------------------------------------------------------------
+    # loss (reference cagroup_head.py:322-555)
+    # ------------------------------------------------------------------
+    def _vote_targets_scannet(self, voxel_points, voxel_valid, scene_points,
+                              scene_valid, sem_mask, ins_mask, gt_boxes,
+                              gt_valid, ins_cap: int):
+        """Instance-centre vote targets: each stride-2 voxel votes for the
+        GT centre matched to the instance of its nearest raw scene point.
+        Returns (offset targets [N, 3], mask [N])."""
+        dev = voxel_points.device
+        big = 1e9
+        ins = ins_mask.clamp(0, ins_cap - 1).long()
+        ins_ok = scene_valid & (ins_mask < ins_cap) & (ins_mask >= 0)
+        seg = torch.where(ins_ok, ins, torch.full_like(ins, ins_cap))
+        seg3 = seg[:, None].expand(-1, 3)
+        pmin = torch.full((ins_cap + 1, 3), big, device=dev).scatter_reduce(
+            0, seg3, torch.where(ins_ok[:, None], scene_points,
+                                 torch.full_like(scene_points, big)),
+            "amin")[:ins_cap]
+        pmax = torch.full((ins_cap + 1, 3), -big, device=dev).scatter_reduce(
+            0, seg3, torch.where(ins_ok[:, None], scene_points,
+                                 torch.full_like(scene_points, -big)),
+            "amax")[:ins_cap]
+        cnt = torch.zeros(ins_cap + 1, dtype=torch.int32, device=dev
+                          ).index_add(0, seg, ins_ok.to(torch.int32))[:ins_cap]
+        center = 0.5 * (pmin + pmax)
+        # semantic of the instance: the min over its points (instances are
+        # semantically uniform)
+        nc1 = self.n_classes + 1
+        isem = torch.full((ins_cap + 1,), nc1, dtype=torch.int32,
+                          device=dev).scatter_reduce(
+            0, seg, torch.where(ins_ok, sem_mask.to(torch.int32),
+                                torch.full_like(sem_mask, nc1,
+                                                dtype=torch.int32)),
+            "amin")[:ins_cap]
+        ins_valid = (cnt > 0) & (isem < self.n_classes) & gt_valid.any()
+        d = ((center[:, None, :] - gt_boxes[None, :, :3]) ** 2).sum(-1)
+        d = torch.where(gt_valid[None, :], d, torch.full_like(d, big))
+        match = d.argmin(1)
+        ins_center = torch.where(ins_valid[:, None], gt_boxes[match, :3],
+                                 torch.full_like(center, -10000.0))
+        nn_idx = nearest_point_index(voxel_points, voxel_valid, scene_points,
+                                     scene_valid)
+        vox_ins = ins_mask[nn_idx].clamp(0, ins_cap - 1).long()
+        offset_t = ins_center[vox_ins] - voxel_points
+        offset_m = (offset_t > -100.0).all(-1) & voxel_valid
+        offset_t = torch.where(offset_t < -100.0, torch.zeros_like(offset_t),
+                               offset_t)
+        return offset_t, offset_m
+
+    def loss(self, outs: Dict[str, torch.Tensor], gt_boxes, gt_labels,
+             gt_valid, scene_points, scene_valid, sem_mask=None,
+             ins_mask=None, ins_cap: int = 128):
+        """Loss over B scenes; every input has a leading scene axis.
+
+        outs: head outputs stacked over scenes; gt_boxes [B, G, 7] in the
+        scenes' frames, gt_labels i32[B, G], gt_valid [B, G];
+        scene_points [B, P, 3] raw points (same frames), sem/ins masks
+        i32[B, P].  Per-scene losses are averaged over the scenes, with
+        normalizers that average per-scene counts over the scenes (the
+        reference's reduce_mean).  Returns (loss, tb_dict)."""
+        c = self.loss_cfg
+        off_cfg = c.get("LOSS_OFFSET", None)
+        beta = float(off_cfg.BETA) if off_cfg else 0.04
+
+        def _lw(key):
+            sub = c.get(key, None)
+            return float(sub.get("LOSS_WEIGHT", 1.0)) if sub else 1.0
+
+        w_vote, w_bbox, w_cls, w_sem, w_cen = (
+            _lw(k) for k in ("LOSS_OFFSET", "LOSS_BBOX", "LOSS_CLS",
+                             "LOSS_SEM", "LOSS_CENTERNESS"))
+        B = gt_boxes.shape[0]
+        if sem_mask is None:
+            sem_mask = torch.zeros(scene_points.shape[:2], dtype=torch.int32,
+                                   device=scene_points.device)
+            ins_mask = torch.zeros_like(sem_mask)
+        with torch.no_grad():
+            tgts = []
+            for b in range(B):
+                sem_labels, _ = self.assigner.assign_semantic(
+                    outs["semantic_points"][b], outs["semantic_valid"][b],
+                    gt_boxes[b], gt_labels[b], gt_valid[b], self.n_classes)
+                ct, bt, lab = self.assigner.assign(
+                    outs["points"][b], outs["points_valid"][b], gt_boxes[b],
+                    gt_labels[b], gt_valid[b])
+                vt, vm = self._vote_targets_scannet(
+                    outs["semantic_points"][b], outs["semantic_valid"][b],
+                    scene_points[b], scene_valid[b], sem_mask[b],
+                    ins_mask[b], gt_boxes[b], gt_valid[b], ins_cap)
+                tgts.append((sem_labels, ct, bt, lab, vt, vm))
+            sem_labels, ctgt, btgt, labels, vtgt, vmask = (
+                torch.stack(t) for t in zip(*tgts))
+
+        sem_valid = outs["semantic_valid"]                        # [B, N2]
+        pts_valid = outs["points_valid"].reshape(B, -1)           # [B, M]
+        pos = (labels.reshape(B, -1) >= 0) & pts_valid
+        sem_n_pos = ((sem_labels >= 0) & sem_valid).sum(1).float().mean() \
+            .clamp(min=1.0)
+        n_pos = pos.sum(1).float().mean().clamp(min=1.0)
+        cdenorm = torch.where(pos, ctgt.reshape(B, -1),
+                              torch.zeros_like(pos, dtype=ctgt.dtype)
+                              ).sum(1).mean().clamp(min=1e-6)
+        safe = torch.tensor([0, 0, 0, 1, 1, 1, 0.0], device=gt_boxes.device)
+        parts = []
+        for b in range(B):
+            semv = sem_valid[b]
+            pv = outs["points_valid"][b].reshape(-1)
+            labf = labels[b].reshape(-1)
+            posm = (labf >= 0) & pv
+            l_sem = L.focal_loss_with_labels(
+                outs["semantic_scores"][b], sem_labels[b],
+                weight=semv.float(), avg_factor=sem_n_pos)
+            l_cls = L.focal_loss_with_labels(
+                outs["cls_scores"][b].reshape(-1, self.n_classes), labf,
+                weight=pv.float(), avg_factor=n_pos)
+            ctf = ctgt[b].reshape(-1)
+            l_cen = L.binary_cross_entropy(
+                outs["centernesses"][b].reshape(-1), ctf,
+                weight=posm.float(), avg_factor=n_pos)
+            bp = outs["bbox_preds"][b]
+            decoded = self.bbox_pred_to_bbox(outs["points"][b].reshape(-1, 3),
+                                             bp.reshape(-1, bp.shape[-1]))
+            safe_dec = torch.where(posm[:, None], decoded,
+                                   safe[:decoded.shape[-1]])
+            safe_tgt = torch.where(posm[:, None], btgt[b].reshape(-1, 7), safe)
+            l_bbox = L.iou3d_loss(safe_dec, safe_tgt,
+                                  weight=torch.where(posm, ctf,
+                                                     torch.zeros_like(ctf)),
+                                  avg_factor=cdenorm, with_yaw=False)
+            n_real = semv.float().sum().clamp(min=1.0)
+            wv = (vmask[b].float() / n_real + 1e-6)[:, None]
+            l_vote = L.smooth_l1(outs["voxel_offsets"][b], vtgt[b],
+                                 weight=wv * semv[:, None], beta=beta,
+                                 reduction="sum")
+            parts.append(torch.stack([w_sem * l_sem, w_cls * l_cls,
+                                      w_cen * l_cen, w_bbox * l_bbox,
+                                      w_vote * l_vote]))
+        l_sem, l_cls, l_cen, l_bbox, l_vote = torch.stack(parts).mean(0)
+        total = l_sem + l_cls + l_cen + l_bbox + l_vote
+        tb = dict(loss_sem=l_sem, loss_cls=l_cls, loss_centerness=l_cen,
+                  loss_bbox=l_bbox, loss_vote=l_vote, one_stage_loss=total)
+        return total, tb
+
+
+def nearest_point_index(queries, qvalid, points, pvalid, chunk: int = 4096):
+    """argmin_j ||q_i - p_j||^2 over the valid points, ties to the lower
+    index, in chunks of points to bound memory (the reference's knn op
+    with k=1).  Squared distances are summed over x, y, z in that order,
+    not through |a|^2 + |b|^2 - 2ab, which would move the ties."""
+    best_d = torch.full((queries.shape[0],), float("inf"),
+                        device=queries.device)
+    best_i = torch.zeros(queries.shape[0], dtype=torch.long,
+                         device=queries.device)
+    for b in range(0, points.shape[0], chunk):
+        d = ((queries[:, None, :] - points[None, b:b + chunk]) ** 2).sum(-1)
+        d = torch.where(pvalid[None, b:b + chunk], d,
+                        torch.full_like(d, float("inf")))
+        cd, ci = d.amin(1), d.argmin(1)
+        upd = cd < best_d
+        best_d = torch.where(upd, cd, best_d)
+        best_i = torch.where(upd, ci + b, best_i)
+    return best_i

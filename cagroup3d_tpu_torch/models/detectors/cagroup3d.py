@@ -1,22 +1,34 @@
-"""CAGroup3D detector, eval: voxelization -> BiResNet -> one-stage head ->
-RoI head.
+"""CAGroup3D detector: voxelization -> BiResNet -> one-stage head -> RoI
+head, with the training loss.
 
 Counterpart of ``cagroup3d_tpu/models/detectors/cagroup3d.py``
-(``forward_eval``).  Per scene the voxel lattice is shifted so its minimum
-coordinate is 0 (keeps coordinates packable), and predicted boxes are
-shifted back into the input frame at the end.
+(``forward_eval``, ``forward_train``).  Per scene the voxel lattice is
+shifted so its minimum coordinate is 0 (keeps coordinates packable); GT
+and raw points are shifted into that frame for the losses, and predicted
+boxes are shifted back into the input frame at the end.
+
+``forward_train`` runs the B scenes of a step in lock-step threads, one per
+scene (as ``torch.nn.parallel.parallel_apply`` runs replicas), meeting at
+every train-mode BN through a ``SceneSync`` so that BN pools all scenes, as
+the JAX package's ``psum`` over its scene axis does; one scene runs in the
+calling thread.  The losses are computed in the calling thread on the
+stacked per-scene outputs, so one ``backward()`` carries the gradients
+across scenes.
 """
 from __future__ import annotations
 
 import pickle
-from typing import Dict, Optional
+import threading
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...core.module import Ctx, flat_state
+from ...core.norm import SceneSync
 from ...core.voxelize import unique_voxels
+from ...ops import build
 from ..backbones_3d.biresnet import BiResNet
 from ..dense_heads.cagroup_head import CAGroup3DHead
 from ..roi_heads.cagroup_roi_head import CAGroup3DRoIHead
@@ -36,6 +48,9 @@ class CAGroup3D(nn.Module):
         self.semantic_value = model_cfg.SEMANTIC_THR
         self.input_cap = int(model_cfg.get("INPUT_CAP",
                                            self.backbone_3d.caps[1]))
+        self.ins_cap = int(model_cfg.get("INS_CAP", 128))
+        # GT-as-proposal augmentation (off by default; not in the reference)
+        self.roi_gt_aug = float(model_cfg.get("ROI_GT_AUG", 0.0))
 
     def semantic_threshold(self, cur_epoch: float) -> float:
         thr = max(self.semantic_value - cur_epoch * self.semantic_iter_value,
@@ -67,7 +82,7 @@ class CAGroup3D(nn.Module):
                     t.copy_(torch.from_numpy(np.array(src)))
 
     # ------------------------------------------------------------------
-    def _voxelize_scene(self, points, valid, stats):
+    def _voxelize_scene(self, points, valid, stats, drop_offset=None):
         """points [P, 6] (xyz, rgb 0..255) -> (SparseTensor stride 1,
         origin [3], points in the shifted frame [P, 3])."""
         v = self.voxel_size
@@ -82,7 +97,8 @@ class CAGroup3D(nn.Module):
         lat = lat - min_lat[None, :]
         origin = min_lat.to(torch.float32) * v
         st, _ = unique_voxels(lat, rgb, valid, self.input_cap, mode="first",
-                              stats=stats, stat_name="input")
+                              stats=stats, stat_name="input",
+                              drop_offset=drop_offset)
         return st, origin, xyz - origin[None, :]
 
     def _forward_scene(self, P, S, points, pvalid, sem_thr):
@@ -93,6 +109,89 @@ class CAGroup3D(nn.Module):
         head_out = self.dense_head(P, S, ctx, feat, sem_thr)
         props = self.dense_head.get_bboxes(head_out)
         return ctx, st, origin, pts_norm, feat, head_out, props
+
+    def _train_scene(self, P, S, ctx: Ctx, points, pvalid, boxes, labels,
+                     bvalid, sem_thr, roi_draws=None):
+        """One scene of a training step up to the RoI head's outputs."""
+        ctx.drop_offset = int(ctx.randint(1 << 30))
+        st, origin, pts_norm = self._voxelize_scene(
+            points, pvalid, ctx.stats, drop_offset=ctx.drop_offset)
+        feat = self.backbone_3d(P, S, ctx, st)
+        head_out = self.dense_head(P, S, ctx, feat, sem_thr)
+        rois, roi_scores, roi_labels, roi_valid = \
+            self.dense_head.get_bboxes(head_out)
+        boxes_n = torch.cat([boxes[:, :3] - origin[None, :], boxes[:, 3:]],
+                            dim=-1)
+        if self.roi_gt_aug > 0:
+            # jittered GT as extra proposals (mmdet3d heading, like the
+            # one-stage rois)
+            a = self.roi_gt_aug
+            dev = boxes_n.device
+            jc = ctx.randn(*boxes_n[:, :3].shape).to(dev) * a * boxes_n[:, 3:6]
+            js = 1.0 + ctx.randn(*boxes_n[:, 3:6].shape).to(dev) * a * 0.5
+            aug = torch.cat([boxes_n[:, :3] + jc,
+                             (boxes_n[:, 3:6] * js).clamp(min=1e-3),
+                             -boxes_n[:, 6:7]], dim=-1)
+            rois = torch.cat([rois, aug], dim=0)
+            roi_scores = torch.cat([roi_scores, torch.where(
+                bvalid, 0.99, 0.0).to(roi_scores.dtype)], dim=0)
+            roi_labels = torch.cat([roi_labels, labels.to(roi_labels.dtype)])
+            roi_valid = torch.cat([roi_valid, bvalid], dim=0)
+        roi_out = self.roi_head.forward_train(
+            P, S, ctx, feat, rois, roi_scores, roi_labels, roi_valid, boxes_n,
+            labels, bvalid, draws=roi_draws)
+        return head_out, roi_out, origin, pts_norm
+
+    def forward_train(self, batch: Dict, generator: torch.Generator,
+                      cur_epoch: float = 0.0, roi_draws: Optional[List] = None):
+        """One training forward over the B scenes of ``batch`` (points
+        [B, P, 6], points_valid, gt_boxes [B, G, 8] with the label last,
+        gt_valid, and the semantic/instance masks of the ScanNet vote
+        loss).  ``generator`` seeds one random stream per scene (drop
+        offsets, RoI sampling, dropout); ``roi_draws`` overrides each
+        scene's RoI sampling draws.  Returns (loss, tb_dict,
+        running-stat updates); the updates are scene 0's, which equal every
+        scene's because BN pools the scenes."""
+        P, S = flat_state(self)
+        sem_thr = self.semantic_threshold(cur_epoch)
+        B = batch["points"].shape[0]
+        seeds = torch.randint(0, 1 << 62, (B,), generator=generator).tolist()
+        sync = SceneSync(B) if B > 1 else None
+        if batch["points"].is_cuda:
+            build.load("sparse_conv")     # build before the scene threads
+        ctxs = [Ctx(train=True, generator=torch.Generator().manual_seed(sd),
+                    sync=sync, scene=i) for i, sd in enumerate(seeds)]
+        gt_boxes = batch["gt_boxes"][..., :7]
+        gt_labels = batch["gt_boxes"][..., 7].to(torch.int32)
+        gt_valid = batch["gt_valid"]
+
+        def scene(i):
+            return self._train_scene(
+                P, S, ctxs[i], batch["points"][i], batch["points_valid"][i],
+                gt_boxes[i], gt_labels[i], gt_valid[i], sem_thr,
+                None if roi_draws is None else roi_draws[i])
+
+        results = run_scenes(scene, B, sync)
+        head_outs = {k: torch.stack([r[0][k] for r in results])
+                     for k in results[0][0]}
+        roi_outs = {k: torch.stack([r[1][k] for r in results])
+                    for k in results[0][1]}
+        origins = torch.stack([r[2] for r in results])
+        pts_norm = torch.stack([r[3] for r in results])
+        gt_boxes_n = torch.cat([gt_boxes[..., :3] - origins[:, None, :],
+                                gt_boxes[..., 3:]], dim=-1)
+        loss_one, tb = self.dense_head.loss(
+            head_outs, gt_boxes_n, gt_labels, gt_valid, pts_norm,
+            batch["points_valid"], batch.get("semantic_mask"),
+            batch.get("instance_mask"), ins_cap=self.ins_cap)
+        loss_two, tb2 = self.roi_head.loss(roi_outs)
+        tb.update(tb2)
+        loss = loss_one + loss_two
+        tb["loss_all"] = loss
+        # capacity-overflow counters (dropped voxels), summed over scenes
+        for k in ctxs[0].stats:
+            tb[k] = sum(c.stats[k] for c in ctxs).float()
+        return loss, tb, ctxs[0].updates
 
     @torch.no_grad()
     def forward_eval(self, batch: Dict, cur_epoch=None) -> Dict:
@@ -118,3 +217,33 @@ class CAGroup3D(nn.Module):
                              pred_valid=out["batch_pred_valid"],
                              overflow=overflow))
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def run_scenes(fn, n: int, sync: Optional[SceneSync]):
+    """[fn(0), ..., fn(n - 1)]: scene 0 in the calling thread when n == 1,
+    else one thread per scene.  A failing scene aborts ``sync`` so the
+    others stop waiting, and the first error is re-raised here."""
+    if n == 1:
+        return [fn(0)]
+    results: list = [None] * n
+    errors: list = []
+    grad = torch.is_grad_enabled()
+
+    def work(i):
+        try:
+            with torch.set_grad_enabled(grad):
+                results[i] = fn(i)
+        except BaseException as e:   # re-raised in the calling thread
+            errors.append((i, e))
+            sync.abort()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        i, e = min(errors, key=lambda x: isinstance(
+            x[1], threading.BrokenBarrierError))
+        raise RuntimeError(f"scene {i} of the training step failed") from e
+    return results

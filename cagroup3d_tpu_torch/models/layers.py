@@ -1,9 +1,10 @@
-"""Model-facing layer helpers over the sparse engine (eval).
+"""Model-facing layer helpers over the sparse engine.
 
 Counterpart of ``cagroup3d_tpu/models/layers.py``: convs, batch norm and
 activations addressed by flat parameter path.  Every odd-kernel (k >= 3)
 submanifold, strided and at-coords conv runs kernel K1
-(``ops/sparse_conv.py``); 1x1 convs are matmuls; the remaining forms go
+(``ops/sparse_conv.py``) in eval and in training (its backward runs K1 and
+K3); 1x1 convs are matmuls; the remaining forms go
 through neighbour tables and ``gather_gemm``.  Stride reductions are cached
 per forward by the identity of the reduced coords, so parallel reductions
 of one coordinate set (biresnet ``layer3`` vs ``down3``) give the same

@@ -1,4 +1,4 @@
-"""CAGroup3D model utilities (eval): residual box decoding and bias init.
+"""CAGroup3D model utilities: residual box coding and bias init.
 
 Counterpart of ``cagroup3d_tpu/models/model_utils/cagroup_utils.py``.
 """
@@ -19,6 +19,22 @@ class CAGroupResidualCoder:
     yaw codes belong to the SUN RGB-D path, not ported yet."""
 
     code_size = 6
+
+    @staticmethod
+    def encode(boxes: torch.Tensor, anchors: torch.Tensor):
+        anchors = torch.cat([anchors[..., :3],
+                             anchors[..., 3:6].clamp(min=1e-5)], dim=-1)
+        boxes = torch.cat([boxes[..., :3], boxes[..., 3:6].clamp(min=1e-5)],
+                          dim=-1)
+        xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
+        dxa, dya, dza = anchors[..., 3], anchors[..., 4], anchors[..., 5]
+        xg, yg, zg = boxes[..., 0], boxes[..., 1], boxes[..., 2]
+        dxg, dyg, dzg = boxes[..., 3], boxes[..., 4], boxes[..., 5]
+        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        return torch.stack([(xg - xa) / diag, (yg - ya) / diag,
+                            (zg - za) / dza, torch.log(dxg / dxa),
+                            torch.log(dyg / dya), torch.log(dzg / dza)],
+                           dim=-1)
 
     @staticmethod
     def decode(encodings: torch.Tensor, anchors: torch.Tensor):

@@ -1,11 +1,13 @@
-"""CAGroup3D two-stage RoI head (eval): sparse RoI grid pooling + MLP.
+"""CAGroup3D two-stage RoI head: sparse RoI grid pooling + MLP, and its
+training half.
 
 Counterpart of ``cagroup3d_tpu/models/roi_heads/cagroup_roi_head.py``.  Per
 roi a GRID_SIZE^3 grid of points is deduplicated on the backbone's stride-2
 lattice, convolved at those query coordinates (k5 conv-at-coords on the
 backbone voxels, kernel K1), scattered back per roi and centre-pooled with
-one dense [G^3*C -> C] contraction, then refined by a Linear+BN+ReLU MLP,
-decoded and per-class NMS'd.
+one dense [G^3*C -> C] contraction, then refined by a Linear+BN+ReLU MLP
+(with dropout in training), decoded and per-class NMS'd (eval), or
+regressed against sampled GT targets (training).
 """
 from __future__ import annotations
 
@@ -16,14 +18,16 @@ import torch
 from torch import nn
 
 from ...core.gather import take_rows_masked
-from ...core.module import (Ctx, Params, apply_bn, apply_linear, init_bn,
-                            init_conv, init_linear, register_flat)
+from ...core.module import (Ctx, Params, apply_bn, apply_linear, dropout,
+                            init_bn, init_conv, init_linear, register_flat)
 from ...core.nms import multiclass_nms
 from ...core.norm import elu, relu
 from ...core.sparse import SparseTensor, zero_invalid
 from ...core.sparse_conv import scan_conv_grouped
 from ...core.voxelize import unique_voxels
+from ...utils import loss_utils as L
 from ..model_utils.cagroup_utils import CAGroupResidualCoder
+from .target_assigner.cagroup_proposal_target_layer import ProposalTargetLayer
 
 
 class CAGroup3DRoIHead(nn.Module):
@@ -45,6 +49,16 @@ class CAGroup3DRoIHead(nn.Module):
         self.grid_cap = int(c.get("GRID_CAP", 16384))
         self.nms_per_cls_cap = int(c.get("NMS_PER_CLS_CAP", 128))
         self.max_out = int(c.get("MAX_OUT", 128))
+        self.dp_ratio = c.get("DP_RATIO", 0.3)
+        self.loss_weight = c.LOSS_WEIGHTS
+        self.code_weights = c.LOSS_WEIGHTS.CODE_WEIGHT
+        if c.get("USE_IOU_LOSS", False):
+            raise NotImplementedError("the RoI IoU loss belongs to the yaw "
+                                      "(SUN RGB-D) path")
+        self.proposal_target_layer = ProposalTargetLayer(
+            roi_per_image=c.get("ROI_PER_IMAGE", 128),
+            fg_ratio=c.get("ROI_FG_RATIO", 0.9),
+            reg_fg_thresh=c.get("REG_FG_THRESH", 0.3))
         self.box_coder = CAGroupResidualCoder()
         P, S = self._init(generator or torch.Generator().manual_seed(0))
         register_flat(self, P, S)
@@ -117,8 +131,64 @@ class CAGroup3DRoIHead(nn.Module):
             x = apply_bn(P, S, ctx, f"{prefix}.reg_fc_layers.{idx + 1}", x,
                          valid)
             x = zero_invalid(relu(x), valid)
-            idx += 4 if k != len(self.reg_fc) - 1 else 3
+            if k != len(self.reg_fc) - 1:
+                if self.dp_ratio > 0:
+                    x = dropout(ctx, x, self.dp_ratio)
+                idx += 4
+            else:
+                idx += 3
         return apply_linear(P, prefix + ".reg_pred_layer", x)
+
+    def forward_train(self, P, S, ctx: Ctx, st: SparseTensor, rois,
+                      roi_scores, roi_labels, roi_valid, gt_boxes, gt_labels,
+                      gt_valid, prefix: str = "roi_head", draws=None):
+        """One scene, training: sample targets, then pool and regress.  The
+        rois (one-stage NMS output, mmdet3d heading) keep their gradient,
+        as in the JAX package: the regression targets are relative to
+        them.  ``draws`` overrides the proposal sampling's random draws."""
+        rois_pc = torch.cat([rois[:, :6], -rois[:, 6:7]], dim=-1)
+        if self.enlarge_ratio:
+            rois_pc = torch.cat([rois_pc[:, :3],
+                                 rois_pc[:, 3:6] * self.enlarge_ratio,
+                                 rois_pc[:, 6:]], dim=-1)
+        tgt = self.proposal_target_layer(
+            ctx.generator, rois_pc, roi_scores, roi_labels, roi_valid,
+            gt_boxes, gt_labels, gt_valid, draws=draws)
+        s_rois = tgt["rois"]
+        s_valid = torch.ones(s_rois.shape[0], dtype=torch.bool,
+                             device=s_rois.device)
+        # GT in the roi frame (assign_targets): centres relative to the roi
+        gt_src = tgt["gt_of_rois"]
+        two_pi = 2 * np.pi
+        gt_ct = torch.cat([gt_src[:, 0:3] - s_rois[:, 0:3], gt_src[:, 3:6],
+                           (gt_src[:, 6:7] % two_pi) -
+                           (s_rois[:, 6:7] % two_pi)], dim=-1)
+        pooled = self.roi_grid_pool(P, S, ctx, st, s_rois, s_valid, prefix)
+        rcnn_reg = self.reg_branch(P, S, ctx, pooled, s_valid, prefix)
+        return dict(rcnn_reg=rcnn_reg, rois=s_rois, gt_of_rois=gt_ct,
+                    gt_of_rois_src=gt_src,
+                    reg_valid_mask=tgt["reg_valid_mask"],
+                    roi_labels=tgt["roi_labels"],
+                    roi_scores=tgt["roi_scores"], sampled=tgt["sampled"])
+
+    def loss(self, fwd):
+        """Second-stage loss over B scenes (leading scene axis): weighted
+        smooth-L1 of the residual codes of the foreground rois."""
+        rois = fwd["rois"].reshape(-1, fwd["rois"].shape[-1])
+        gt_ct = fwd["gt_of_rois"].reshape(-1, fwd["gt_of_rois"].shape[-1])
+        reg = fwd["rcnn_reg"].reshape(-1, fwd["rcnn_reg"].shape[-1])
+        fg = fwd["reg_valid_mask"].reshape(-1) > 0
+        anchors = torch.cat([torch.zeros_like(rois[:, 0:3]), rois[:, 3:6]],
+                            dim=-1)
+        targets = self.box_coder.encode(gt_ct[:, :6], anchors)
+        elt = L.weighted_smooth_l1(reg, targets,
+                                   code_weights=self.code_weights)
+        fg_sum = fg.float().sum().clamp(min=1.0)
+        loss_reg = (elt * fg[:, None]).sum() / fg_sum
+        w = float(self.loss_weight.RCNN_REG_WEIGHT)
+        loss_reg = loss_reg * w
+        total = loss_reg if w > 0 else torch.zeros((), device=reg.device)
+        return total, dict(rcnn_loss_reg=loss_reg, loss_two_stage=total)
 
     def forward(self, P, S, ctx: Ctx, st: SparseTensor, rois, roi_scores,
                 roi_labels, roi_valid, prefix: str = "roi_head"):

@@ -1,6 +1,7 @@
-"""K1: sparse convolution over key-indexed voxel tables.
+"""K1: sparse convolution over key-indexed voxel tables, its backward, and
+K3: the weight gradient.
 
-Replaces the TPU kernel ``cagroup3d_tpu/ops/pallas_conv.py::_conv_kernel``
+K1 replaces the TPU kernel ``cagroup3d_tpu/ops/pallas_conv.py::_conv_kernel``
 (``_pallas_forward``, reached through ``subm_conv_classes_mxu``,
 ``subm_conv_mxu`` and ``conv_at_coords_mxu``).  Per group g and query q:
 
@@ -11,19 +12,32 @@ up by packed key among the group's valid source rows, missing neighbours
 adding nothing and invalid queries giving zero rows.  Features and weights
 are rounded to bf16 and accumulated in f32, as on the TPU.
 
+K3 replaces ``pallas_conv.py::_dw_kernel`` (``_pallas_dw``, the dW half of
+the custom VJPs of ``subm_conv_classes_mxu`` and ``conv_at_coords_mxu``):
+
+    dw[gw, o] = sum_{g % Gw == gw} sum_q feats[g, row(lat(q) + o)]^T gout[g, q]
+
+``sparse_conv`` is differentiable (``torch.autograd.Function``): its
+forward is K1; the feature gradient is K1 again with offset-reversed,
+transposed weights (``w_rev_t``) on the bf16-rounded cotangent, with the
+tables swapped for the conv-at-coords form (source = the query table,
+queries = the source lattice); the weight gradient is K3.
+
 Source contract, the Pallas kernel's: each group's source rows are sorted
 by packed key with invalid rows last, so a key's rank is its row.  Every
 source table of the main path comes out of ``unique_voxels`` or the
-head's segment-sum maps in that order (``sources_sorted`` checks it).
-Queries may come in any order.
+head's segment-sum maps in that order (``sources_sorted`` checks it), and
+so does every query table of the conv-at-coords form, which is the source
+of its feature gradient.  Queries may otherwise come in any order.
 
-The CUDA kernel is ``csrc/sparse_conv.cu``; ``sparse_conv_plain`` is its
-plain PyTorch version, used for CPU tensors and as the reference on the
-card.
+The CUDA kernels are in ``csrc/sparse_conv.cu``; ``sparse_conv_plain`` and
+``sparse_conv_dw_plain`` are their plain PyTorch versions, used for CPU
+tensors and as the reference on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -33,32 +47,77 @@ from ..core.kernel_maps import kernel_offsets
 from ..core.sparse import bf16_round, zero_invalid
 from . import build
 
+_count_lock = threading.Lock()
+
+
+def w_rev_t(w: torch.Tensor) -> torch.Tensor:
+    """Reverse the offset axis (offset negation under the symmetric
+    x-major stencil order) and swap Cin/Cout: [..., K^3, Cin, Cout] ->
+    [..., K^3, Cout, Cin], the weights of the feature backward."""
+    return w.flip(-3).transpose(-1, -2)
+
+
+def _hits(src_lat, src_valid, qry_lat, qry_valid, off):
+    """(row, hit) per query for one offset: binary search of the shifted
+    query key in the group's sorted source keys."""
+    sk = pack_coords(src_lat, src_valid)                           # [G, N]
+    qk = pack_coords(qry_lat + off, qry_valid)                     # [G, NQ]
+    pos = torch.searchsorted(sk, qk).clamp(max=sk.shape[1] - 1)
+    hit = (torch.gather(sk, 1, pos) == qk) & (qk != INVALID_KEY)
+    return pos, hit
+
 
 def sparse_conv_plain(src_lat: torch.Tensor, src_valid: torch.Tensor,
                       src_feats: torch.Tensor, w: torch.Tensor,
                       kernel_size: int, qry_lat: Optional[torch.Tensor] = None,
                       qry_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: per offset, a binary search in the sorted source
-    keys, a masked row gather and a batched matmul accumulated into the
-    output (never [K^3, N, C])."""
+    """Plain version of K1: per offset, a binary search in the sorted
+    source keys, a masked row gather and a batched matmul accumulated into
+    the output (never [K^3, N, C])."""
     G, N, C = src_feats.shape
     if qry_lat is None:
         qry_lat, qry_valid = src_lat, src_valid
     NQ = qry_lat.shape[1]
     Gw, _, _, Cout = w.shape
     dev = src_feats.device
-    sk = pack_coords(src_lat, src_valid)                           # [G, N]
     feats = bf16_round(zero_invalid(src_feats, src_valid))
     wg = bf16_round(w)[torch.arange(G, device=dev) % Gw]          # [G, K3, C, O]
     out = torch.zeros(G, NQ, Cout, dtype=torch.float32, device=dev)
     offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev)
     for o in range(offs.shape[0]):
-        qk = pack_coords(qry_lat + offs[o], qry_valid)             # [G, NQ]
-        pos = torch.searchsorted(sk, qk).clamp(max=N - 1)
-        hit = (torch.gather(sk, 1, pos) == qk) & (qk != INVALID_KEY)
+        pos, hit = _hits(src_lat, src_valid, qry_lat, qry_valid, offs[o])
         f = torch.gather(feats, 1, pos[..., None].expand(-1, -1, C))
         out += torch.bmm(zero_invalid(f, hit), wg[:, o])
     return out
+
+
+def sparse_conv_dw_plain(src_lat: torch.Tensor, src_valid: torch.Tensor,
+                         src_feats: torch.Tensor, gout: torch.Tensor,
+                         kernel_size: int, w_groups: int,
+                         qry_lat: Optional[torch.Tensor] = None,
+                         qry_valid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain version of K3: per offset, the same binary search and masked
+    gather as ``sparse_conv_plain`` and a batched ``feats^T @ gout``
+    (never [K^3, N, C]); groups that share weights are summed.  Features
+    and the cotangent are rounded to bf16, products summed in f32.
+    Returns f32[w_groups, K^3, C, Cout]."""
+    G, N, C = src_feats.shape
+    if qry_lat is None:
+        qry_lat, qry_valid = src_lat, src_valid
+    Cout = gout.shape[-1]
+    dev = src_feats.device
+    feats = bf16_round(zero_invalid(src_feats, src_valid))
+    g16 = bf16_round(zero_invalid(gout, qry_valid))
+    offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev)
+    dw = torch.zeros(G, offs.shape[0], C, Cout, dtype=torch.float32,
+                     device=dev)
+    for o in range(offs.shape[0]):
+        pos, hit = _hits(src_lat, src_valid, qry_lat, qry_valid, offs[o])
+        f = zero_invalid(torch.gather(feats, 1,
+                                      pos[..., None].expand(-1, -1, C)), hit)
+        dw[:, o] = torch.bmm(f.transpose(1, 2), g16)
+    return dw.reshape(G // w_groups, w_groups, *dw.shape[1:]).sum(0)
 
 
 def sources_sorted(src_lat: torch.Tensor, src_valid: torch.Tensor) -> bool:
@@ -75,44 +134,38 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def sparse_conv(src_lat: torch.Tensor, src_valid: torch.Tensor,
-                src_feats: torch.Tensor, w: torch.Tensor, kernel_size: int,
-                qry_lat: Optional[torch.Tensor] = None,
-                qry_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 (see module docstring).
-
-    src_lat i32[G, N, 3] source lattice coords (already divided by the
-    source stride), key-sorted with invalid rows last; src_valid
-    bool[G, N]; src_feats [G, N, C]; w [Gw, K^3, C, Cout] with Gw dividing G; qry_lat/qry_valid
-    [G, NQ, 3]/[G, NQ] query lattice coords, or None for the submanifold
-    form (queries = sources).  Returns f32[G, NQ, Cout].
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
-    if src_feats.device.type == "cpu":
-        return sparse_conv_plain(src_lat, src_valid, src_feats, w,
-                                 kernel_size, qry_lat, qry_valid)
-    dev = src_feats.device
+def _keys(src_lat, src_valid, qry_lat, qry_valid, K, feats, n_out):
+    """Validate a launch and pack its key tables: (sk, qk)."""
+    dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"sparse_conv: no kernel for device {dev}")
-    K = kernel_size
-    G, N, C = src_feats.shape
-    Gw, K3, Cw, Cout = w.shape
-    if K % 2 == 0 or K > 9 or K3 != K ** 3 or Cw != C or G % Gw != 0:
-        raise ValueError(f"sparse_conv: unsupported K={K}, w {tuple(w.shape)}"
-                         f" for feats {tuple(src_feats.shape)}")
+    G, N, C = feats.shape
+    if K % 2 == 0 or K > 9 or G % n_out != 0:
+        raise ValueError(f"sparse_conv: unsupported K={K} or {G} groups "
+                         f"over {n_out} weight groups")
     sk = pack_coords(src_lat, src_valid).contiguous()
     qk = sk if qry_lat is None else pack_coords(qry_lat, qry_valid).contiguous()
+    _check(sk, "source keys", torch.int32, (G, N), dev)
+    _check(qk, "query keys", torch.int32, (G, qk.shape[1]), dev)
+    return sk, qk
+
+
+def _launch_k1(src_lat, src_valid, src_feats, w, K, qry_lat, qry_valid):
+    """K1 on CUDA tensors (see module docstring); f32[G, NQ, Cout]."""
+    G, N, C = src_feats.shape
+    Gw, K3, Cw, Cout = w.shape
+    if K3 != K ** 3 or Cw != C:
+        raise ValueError(f"sparse_conv: w {tuple(w.shape)} does not fit K={K}"
+                         f" and feats {tuple(src_feats.shape)}")
+    sk, qk = _keys(src_lat, src_valid, qry_lat, qry_valid, K, src_feats, Gw)
     NQ = qk.shape[1]
+    dev = src_feats.device
     feats = zero_invalid(src_feats, src_valid).to(torch.bfloat16).contiguous()
     wb = w.to(torch.bfloat16).contiguous()
-    _check(sk, "source keys", torch.int32, (G, N), dev)
-    _check(qk, "query keys", torch.int32, (G, NQ), dev)
     _check(feats, "feats", torch.bfloat16, (G, N, C), dev)
     _check(wb, "weights", torch.bfloat16, (Gw, K3, C, Cout), dev)
     out = torch.empty(G, NQ, Cout, dtype=torch.float32, device=dev)
-    lib = build.load("sparse_conv")
-    fn = lib.sparse_conv_launch
+    fn = build.load("sparse_conv").sparse_conv_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -122,8 +175,136 @@ def sparse_conv(src_lat: torch.Tensor, src_valid: torch.Tensor,
              out.data_ptr(), G, N, NQ, C, Cout, Gw, K, sx, sy, ex, ey, ez,
              stream)
     build.check(err, "sparse_conv")
-    sparse_conv.launches += 1
+    with _count_lock:
+        sparse_conv.launches += 1
     return out
 
 
+def _conv(src_lat, src_valid, src_feats, w, K, qry_lat=None, qry_valid=None):
+    """K1 forward: the plain version for CPU tensors, the kernel on CUDA."""
+    if src_feats.device.type == "cpu":
+        return sparse_conv_plain(src_lat, src_valid, src_feats, w, K,
+                                 qry_lat, qry_valid)
+    return _launch_k1(src_lat, src_valid, src_feats, w, K, qry_lat,
+                      qry_valid)
+
+
+def sparse_conv_dfeats(src_lat, src_valid, w, kernel_size: int, gout,
+                       qry_lat=None, qry_valid=None) -> torch.Tensor:
+    """Feature gradient of ``sparse_conv`` given the (masked) output
+    cotangent gout [G, NQ, Cout]: K1 with ``w_rev_t(w)``; for the
+    conv-at-coords form the query table is the source and the source
+    lattice the queries.  Returns f32[G, N, C]."""
+    wt = w_rev_t(w)
+    if qry_lat is None:
+        return _conv(src_lat, src_valid, gout, wt, kernel_size)
+    return _conv(qry_lat, qry_valid, gout, wt, kernel_size, src_lat,
+                 src_valid)
+
+
+def sparse_conv_dfeats_plain(src_lat, src_valid, w, kernel_size: int, gout,
+                             qry_lat=None, qry_valid=None) -> torch.Tensor:
+    """Plain version of ``sparse_conv_dfeats`` (``sparse_conv_plain``)."""
+    wt = w_rev_t(w)
+    if qry_lat is None:
+        return sparse_conv_plain(src_lat, src_valid, gout, wt, kernel_size)
+    return sparse_conv_plain(qry_lat, qry_valid, gout, wt, kernel_size,
+                             src_lat, src_valid)
+
+
+def sparse_conv_dw(src_lat: torch.Tensor, src_valid: torch.Tensor,
+                   src_feats: torch.Tensor, gout: torch.Tensor,
+                   kernel_size: int, w_groups: int,
+                   qry_lat: Optional[torch.Tensor] = None,
+                   qry_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 (see module docstring): gout [G, NQ, Cout] is the output
+    cotangent; w_groups (Gw) divides G.  Returns f32[Gw, K^3, C, Cout].
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if src_feats.device.type == "cpu":
+        return sparse_conv_dw_plain(src_lat, src_valid, src_feats, gout,
+                                    kernel_size, w_groups, qry_lat, qry_valid)
+    K = kernel_size
+    G, N, C = src_feats.shape
+    sk, qk = _keys(src_lat, src_valid, qry_lat, qry_valid, K, src_feats,
+                   w_groups)
+    NQ, Cout = qk.shape[1], gout.shape[-1]
+    dev = src_feats.device
+    qv = src_valid if qry_lat is None else qry_valid
+    feats = zero_invalid(src_feats, src_valid).to(torch.bfloat16).contiguous()
+    g16 = zero_invalid(gout, qv).to(torch.bfloat16).contiguous()
+    _check(feats, "feats", torch.bfloat16, (G, N, C), dev)
+    _check(g16, "gout", torch.bfloat16, (G, NQ, Cout), dev)
+    lib = build.load("sparse_conv")
+    plan = lib.sparse_conv_dw_plan
+    plan.argtypes = [ctypes.c_int] * 6
+    plan.restype = ctypes.c_longlong
+    n_part = plan(G, NQ, C, Cout, K, w_groups)
+    out = torch.empty(w_groups, K ** 3, C, Cout, dtype=torch.float32,
+                      device=dev)
+    part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
+    fn = lib.sparse_conv_dw_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    (ex, ey, ez), (sx, sy) = key_extents(), key_shifts()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(sk.data_ptr(), qk.data_ptr(), feats.data_ptr(), g16.data_ptr(),
+             part.data_ptr(), out.data_ptr(), G, N, NQ, C, Cout, w_groups, K,
+             sx, sy, ex, ey, ez, stream)
+    build.check(err, "sparse_conv_dw")
+    with _count_lock:
+        sparse_conv_dw.launches += 1
+    return out
+
+
+class _SparseConvFn(torch.autograd.Function):
+    """K1 forward; K1 feature backward and K3 weight backward."""
+
+    @staticmethod
+    def forward(ctx, src_lat, src_valid, src_feats, w, kernel_size,
+                qry_lat, qry_valid):
+        ctx.kernel_size = kernel_size
+        ctx.save_for_backward(src_lat, src_valid, src_feats, w, qry_lat,
+                              qry_valid)
+        return _conv(src_lat, src_valid, src_feats, w, kernel_size, qry_lat,
+                     qry_valid)
+
+    @staticmethod
+    def backward(ctx, gout):
+        src_lat, src_valid, src_feats, w, qry_lat, qry_valid = \
+            ctx.saved_tensors
+        K = ctx.kernel_size
+        gout = zero_invalid(gout, src_valid if qry_lat is None else qry_valid)
+        dfeats = dw = None
+        if ctx.needs_input_grad[2]:
+            dfeats = sparse_conv_dfeats(src_lat, src_valid, w, K, gout,
+                                        qry_lat, qry_valid
+                                        ).to(src_feats.dtype)
+        if ctx.needs_input_grad[3]:
+            dw = sparse_conv_dw(src_lat, src_valid, src_feats, gout, K,
+                                w.shape[0], qry_lat, qry_valid).to(w.dtype)
+        return None, None, dfeats, dw, None, None, None
+
+
+def sparse_conv(src_lat: torch.Tensor, src_valid: torch.Tensor,
+                src_feats: torch.Tensor, w: torch.Tensor, kernel_size: int,
+                qry_lat: Optional[torch.Tensor] = None,
+                qry_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1, differentiable in ``src_feats`` and ``w`` (see module docstring).
+
+    src_lat i32[G, N, 3] source lattice coords (already divided by the
+    source stride), key-sorted with invalid rows last; src_valid
+    bool[G, N]; src_feats [G, N, C]; w [Gw, K^3, C, Cout] with Gw dividing
+    G; qry_lat/qry_valid [G, NQ, 3]/[G, NQ] query lattice coords, or None
+    for the submanifold form (queries = sources).  Returns f32[G, NQ, Cout].
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    (``sparse_conv.launches`` counts K1 launches, the feature backward's
+    included; ``sparse_conv_dw.launches`` counts K3's).
+    """
+    return _SparseConvFn.apply(src_lat, src_valid, src_feats, w,
+                               kernel_size, qry_lat, qry_valid)
+
+
 sparse_conv.launches = 0
+sparse_conv_dw.launches = 0

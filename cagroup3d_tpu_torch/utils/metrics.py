@@ -1,0 +1,62 @@
+"""Observability: a rolling ``LogBuffer`` and a JSONL ``MetricsWriter``.
+
+Counterpart of ``cagroup3d_tpu/utils/metrics.py`` (the reference's
+tensorboardX + LogBuffer): scalars go to a line-delimited JSON file and a
+rolling average buffer drives console logging.
+"""
+from __future__ import annotations
+
+import json
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+
+class LogBuffer:
+    """Rolling averages of scalar outputs (reference log_buffer.py)."""
+
+    def __init__(self):
+        self.val_history = defaultdict(list)
+        self.n_history = defaultdict(list)
+        self.output = {}
+        self.ready = False
+
+    def update(self, vars: Dict[str, float], count: int = 1):
+        for k, v in vars.items():
+            self.val_history[k].append(float(v))
+            self.n_history[k].append(count)
+
+    def average(self, n: int = 0):
+        for k in self.val_history:
+            vals = self.val_history[k][-n:] if n > 0 else self.val_history[k]
+            cnts = self.n_history[k][-n:] if n > 0 else self.n_history[k]
+            tot = sum(cnts)
+            self.output[k] = sum(v * c for v, c in zip(vals, cnts)) / max(
+                tot, 1)
+        self.ready = True
+
+    def clear(self):
+        self.val_history.clear()
+        self.n_history.clear()
+        self.output.clear()
+        self.ready = False
+
+
+class MetricsWriter:
+    """Append-only JSONL scalar log (tensorboard stand-in)."""
+
+    def __init__(self, path: Optional[str]):
+        self.path = path
+        self._f = open(path, "a") if path else None
+
+    def write(self, step: int, scalars: Dict[str, float], prefix: str = ""):
+        if self._f is None:
+            return
+        rec = {"step": step, "ts": time.time()}
+        rec.update({(prefix + k): float(v) for k, v in scalars.items()})
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self):
+        if self._f:
+            self._f.close()

@@ -27,6 +27,32 @@ Phases, one JSON line each; any failure exits 1 without the final line.
    expected shapes, both kernels launched; per-scene latency.
 7. reference -- a tiny configuration's forward on the card (kernels)
    against the same model on the CPU (plain versions).
+8. k3      -- one full-width training step of one scene (forward, losses,
+   ``backward()``), recording every K1 call (forward and feature backward)
+   and every K3 call; each against its plain version on the same inputs,
+   grouped by main-path form (a)-(f), with the bars of phase 4 and every
+   source table key-sorted; kernel, plain and bound ms per form.
+9. train   -- full-width ScanNet CAGroup3D trained with the YAML's
+   OPTIMIZATION (AdamW, lr 1e-3, wd 1e-4, clip 10) at B = 4 synthetic
+   100k-point scenes per step: one warm-up and three timed steps with the
+   launch counters reset before them; loss and tb finite, every backbone,
+   head and RoI parameter's gradient finite and each module's non-zero,
+   parameters and BN running stats changed, K1 and K3 launched.
+10. train-reference -- one training step of the tiny configuration at
+   B = 2 on the card against the same step on the CPU, same draws, zero
+   votes (a vote's floor is the one discrete step that f32 round-off
+   moves): loss within 1e-3; per module, the worst parameter's gradient
+   error and the whole gradient's error in norm within 2e-2 or within
+   twice what the CPU step itself moves when every weight is scaled by
+   1 + 1e-7.  The step is chaotic: bf16-rounded conv inputs and
+   cotangents turn f32 round-off into bf16 ulps that train-mode BN over
+   the deep maps' few voxels amplifies, so one ulp of the weights moves
+   the CPU's backbone gradient by about half its norm (see
+   ``grad_report``).
+11. learn  -- the tiny configuration, one fixed B = 2 batch, 30 steps: the
+   loss falls at least by LEARN_MARGIN, nine tenths of the drop the JAX
+   package's step makes on the CPU in the same setting
+   (``tests/learn_margin.py``).
 
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.
@@ -43,6 +69,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(HERE, "tools", "cfgs", "scannet_models", "CAGroup3D.yaml")
 INPUT_CAP, FINE_CAP, N_POINTS = 65536, 4096, 100_000
 TOL, ROW_TOL = 2e-2, 1e-3
+TRAIN_B, TRAIN_STEPS, LEARN_STEPS = 4, 3, 30
+STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
+# the drop, 1 - last / first loss, that the JAX package's step makes on
+# the CPU in the learn setting (tests/learn_margin.py; the port's CPU step
+# made 0.3653 in the same run); the random streams of the two packages
+# differ, so the card must reach nine tenths of it
+JAX_LEARN_DROP = 0.3663
+LEARN_MARGIN = 0.9 * JAX_LEARN_DROP
+# the card's peak rates (NVIDIA data sheet, H100 SXM, dense, 700 W)
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 
 
 def emit(obj):
@@ -85,15 +121,186 @@ def row_err(a, b):
     return float(((a - b).abs().amax(-1) / den).max())
 
 
-def build_model(mc, n_cls, device, seed):
+def bound(n_bytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the bf16 FLOPs over
+    the tensor-core rate."""
+    tb, to = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def conv_hits(src_lat, src_valid, K, qry_lat=None, qry_valid=None):
+    """(query, offset) pairs with a source neighbour: the pairs a sparse
+    conv over these tables multiplies."""
+    import torch
+    from cagroup3d_tpu_torch.core.kernel_maps import kernel_offsets
+    from cagroup3d_tpu_torch.ops.sparse_conv import _hits
+    if qry_lat is None:
+        qry_lat, qry_valid = src_lat, src_valid
+    offs = torch.as_tensor(kernel_offsets(K), device=src_lat.device)
+    n = torch.zeros((), dtype=torch.int64, device=src_lat.device)
+    for o in range(offs.shape[0]):
+        n += _hits(src_lat, src_valid, qry_lat, qry_valid, offs[o])[1].sum()
+    return int(n)
+
+
+def conv_cost(G, N, NQ, C, Cout, Gw, K, hits, subm):
+    """(bytes, FLOPs) of one K1 launch: keys (once for the submanifold
+    form), bf16 features and weights read once, f32 output written once,
+    2 FLOPs per multiply-add of the hit rows."""
+    keys = 4 * G * N + (0 if subm else 4 * G * NQ)
+    n_bytes = keys + 2 * G * N * C + 2 * Gw * K ** 3 * C * Cout + \
+        4 * G * NQ * Cout
+    return n_bytes, 2 * hits * C * Cout
+
+
+def dw_cost(G, N, NQ, C, Cout, Gw, K, hits, subm):
+    """(bytes, FLOPs) of one K3 launch: keys, bf16 features and cotangent
+    read once, f32 dW written once."""
+    keys = 4 * G * N + (0 if subm else 4 * G * NQ)
+    n_bytes = keys + 2 * G * N * C + 2 * G * NQ * Cout + \
+        4 * Gw * K ** 3 * C * Cout
+    return n_bytes, 2 * hits * C * Cout
+
+
+def bwd_forms(calls, group_of):
+    """Main-path form of each recorded backward call, in autograd order:
+    the RoI grid conv (f), the head's per-class k5 (e) and k9 (d), its
+    feature_offset k3 (c, the first single-table k3 after the head's),
+    then the backbone (a subm, b down)."""
+    forms, seen_head, c_done = [], False, False
+    for args, _ in calls:
+        G, K, query = group_of(args)
+        if G > 1:
+            seen_head = True
+            forms.append("d_head_cls_k9" if K == 9 else f"e_head_expand_k{K}")
+        elif query:
+            forms.append(f"f_roi_grid_k{K}" if K == 5
+                         else f"b_backbone_down_k{K}")
+        elif seen_head and not c_done and K == 3:
+            c_done = True
+            forms.append(f"c_head_offset_k{K}")
+        else:
+            forms.append(f"a_backbone_subm_k{K}")
+    return forms
+
+
+def grad_report(model_a, model_b, prefix):
+    """Per-parameter gradient errors of model_a against model_b under
+    ``prefix``: (worst name, worst relative error in norm, number
+    compared, whole-vector relative error, cosine).  A gradient below
+    1e-4 of the group's largest norm (a BN bias whose gradient the next BN
+    cancels) is round-off on both sides and is held only to that floor."""
+    import torch
+    ga = {k: p.grad.detach().double().cpu() for k, p in
+          model_a.named_parameters() if k.startswith(prefix)}
+    gb = {k: p.grad.detach().double().cpu() for k, p in
+          model_b.named_parameters() if k.startswith(prefix)}
+    norms = {k: float(v.norm()) for k, v in gb.items()}
+    floor = 1e-4 * max(norms.values())
+    errs, floor_ok = {}, True
+    for k in gb:
+        if norms[k] < floor:
+            floor_ok &= float(ga[k].norm()) < 10 * floor
+        else:
+            errs[k] = float((ga[k] - gb[k]).norm()) / norms[k]
+    a = torch.cat([v.reshape(-1) for v in ga.values()])
+    b = torch.cat([gb[k].reshape(-1) for k in ga])
+    worst = max(errs, key=errs.get)
+    return dict(worst=worst, worst_rel=errs[worst], compared=len(errs),
+                floor_ok=floor_ok,
+                vector_rel=float((a - b).norm() / b.norm()),
+                cosine=float(a @ b / (a.norm() * b.norm())))
+
+
+def build_model(mc, n_cls, device, seed, train=False):
+    """Seeded model with the semantic gate open: every voxel in every class
+    map, so the per-class maps fill (and overflow at full caps) as a
+    trained model's do.  Eval phases open it wide (logit 5) and lift the
+    class prior so the RoI head gets proposals; training phases open it
+    just above the threshold (score 0.3 > SEMANTIC_THR 0.15) and keep the
+    prior, since a wide gate or a lifted prior makes the focal losses of
+    the negatives swamp the rest; jittered GT boxes stand in for the
+    proposals there (``tiny_train_config``)."""
     import torch
     from cagroup3d_tpu_torch.models import build_network
     m = build_network(mc, n_cls, generator=torch.Generator().manual_seed(seed),
                       device=device)
-    with torch.no_grad():
-        m.dense_head.semantic_conv.bias.fill_(5.0)   # the gate opens
-        m.dense_head.cls_conv.bias.fill_(2.0)        # proposals for the RoI head
+    open_gate(m, train)
     return m
+
+
+def open_gate(m, train):
+    import math
+    import torch
+    with torch.no_grad():
+        if train:
+            m.dense_head.semantic_conv.bias.fill_(math.log(0.3 / 0.7))
+        else:
+            m.dense_head.semantic_conv.bias.fill_(5.0)
+            m.dense_head.cls_conv.bias.fill_(2.0)
+
+
+def tiny_config(seed_cfg=CFG):
+    """Phase 7's tiny configuration of the flagship (16 channels, small
+    caps): (model_cfg, class_names, full config)."""
+    from cagroup3d_tpu_torch.models import load_config
+    cfg = load_config(seed_cfg)
+    tc = cfg.MODEL
+    tc.BACKBONE_3D.update(CAPS={1: 2048, 2: 2048, 4: 1024, 8: 512, 16: 256,
+                                32: 128, 64: 32, 128: 16, 256: 8, 512: 8},
+                          PLANES=16, SPP_PLANES=16, OUT_CHANNELS=16)
+    tc.INPUT_CAP = 2048
+    tc.DENSE_HEAD.update(OUT_CHANNELS=16, FINE_CAP=1024, EXPAND_CAP=1024,
+                         MAX_ROIS=64, NMS_PER_CLS_CAP=32)
+    tc.DENSE_HEAD.NMS_CONFIG.NMS_PRE = 256
+    tc.ROI_HEAD.update(MLPS=[[16, 32, 32]], REG_FC=[32, 32], GRID_CAP=2048,
+                       NMS_PER_CLS_CAP=32, MAX_OUT=32)
+    return tc, list(cfg.CLASS_NAMES), cfg
+
+
+def tiny_train_config():
+    """The tiny configuration for the training phases: class maps with room
+    for every voxel of TINY_TRAIN_SCENE (no capacity window moves from step
+    to step), no RoI dropout, and jittered GT boxes among the proposals
+    (``ROI_GT_AUG``; an untrained one-stage net proposes no box that
+    overlaps a GT by IoU 0.3, which would leave the RoI loss and its
+    gradients at zero)."""
+    tc, names, cfg = tiny_config()
+    tc.DENSE_HEAD.update(FINE_CAP=2048, EXPAND_CAP=1024)
+    tc.ROI_HEAD.DP_RATIO = 0.0
+    tc.ROI_GT_AUG = 0.05
+    return tc, names, cfg
+
+
+TINY_SCENE = dict(n_points=4000, room=(3.0, 3.0, 2.5), n_objects=4)
+TINY_TRAIN_SCENE = dict(n_points=1500, room=(3.0, 3.0, 2.5), n_objects=4)
+
+
+def synthetic_train_batch(seed: int, device, batch_size: int,
+                          n_points: int = 100_000, n_classes: int = 18,
+                          **kw):
+    """B synthetic scenes as a ``forward_train`` batch on ``device``.  The
+    generator leaves the semantic/instance masks empty; here (test data,
+    not a feature of the port) a point inside GT box i
+    takes that box's class and instance id i + 1 (the first box in index
+    order wins; id 0 stays the unlabelled background), so the ScanNet vote
+    targets are not all empty."""
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_batch
+    b = synthetic_batch(np.random.RandomState(seed), batch_size=batch_size,
+                        n_points=n_points, point_cap=n_points,
+                        n_classes=n_classes, **kw)
+    for s in range(batch_size):
+        xyz = b["points"][s, :, :3]
+        for i in np.nonzero(b["gt_valid"][s])[0][::-1]:
+            box = b["gt_boxes"][s, i]
+            inside = np.all(np.abs(xyz - box[:3]) < box[3:6] / 2, axis=-1)
+            inside &= b["points_valid"][s]
+            b["semantic_mask"][s, inside] = int(box[7])
+            b["instance_mask"][s, inside] = i + 1
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
 def k1_form(i, calls):
@@ -108,6 +315,313 @@ def k1_form(i, calls):
     return f"c_head_offset_k{K}" if nxt > 1 else f"a_backbone_subm_k{K}"
 
 
+def recorder(fn, log):
+    """fn, logging the (args, kw) of every call into ``log``."""
+    def rec(*args, **kw):
+        log.append((args, kw))
+        return fn(*args, **kw)
+    rec.launches = 0     # a wrapper bumps the counter of its module's name
+    return rec
+
+
+def k1_args(args, kw):
+    """(src_lat, src_valid, src_feats, w, K, qry_lat, qry_valid) of a
+    recorded sparse_conv call."""
+    a = list(args) + [None] * (7 - len(args))
+    a[5] = kw.get("qry_lat", a[5])
+    a[6] = kw.get("qry_valid", a[6])
+    return a
+
+
+def replay(calls, forms, run, plain, info, reps_plain):
+    """Replay recorded calls with the kernel and the plain version on the
+    same inputs and gather per-form stats: errors (``rel_err``,
+    ``row_err``), zero rows, sorted sources, CUDA-event ms of both and the
+    bound ms.  ``info(args, kw)`` -> (zero-row mask or None, source tables
+    that must be key-sorted, (bytes, FLOPs), shape dict)."""
+    import torch
+    stats = {}
+    with torch.no_grad():
+        for (args, kw), form in zip(calls, forms):
+            got, ref = run(*args, **kw), plain(*args, **kw)
+            rows, tables, (n_bytes, flops), shape = info(args, kw)
+            f = stats.setdefault(form, dict(
+                calls=0, max_rel=0.0, max_row=0.0, max_abs=0.0, ms=0.0,
+                plain_ms=0.0, bound_ms=0.0, bytes=0, flops=0, zero_ok=True,
+                sorted=True, shapes=[]))
+            f["calls"] += 1
+            f["max_rel"] = max(f["max_rel"], rel_err(got, ref))
+            f["max_row"] = max(f["max_row"], row_err(got, ref))
+            f["max_abs"] = max(f["max_abs"], float((got - ref).abs().max()))
+            if rows is not None:
+                f["zero_ok"] &= bool((got[~rows] == 0).all())
+            f["sorted"] &= all(sources_sorted_(*t) for t in tables)
+            f["ms"] += time_ms(lambda: run(*args, **kw), 5)
+            f["plain_ms"] += time_ms(lambda: plain(*args, **kw), reps_plain)
+            f["bytes"] += n_bytes
+            f["flops"] += flops
+            if shape not in f["shapes"]:
+                f["shapes"].append(shape)
+    for f in stats.values():
+        f["bound_ms"], f["bound_by"] = bound(f["bytes"], f["flops"])
+        f["ok"] = (f["max_rel"] < TOL and f["max_row"] < ROW_TOL and
+                   f["zero_ok"] and f["sorted"])
+    return stats
+
+
+def sources_sorted_(lat, valid):
+    from cagroup3d_tpu_torch.ops.sparse_conv import sources_sorted
+    return sources_sorted(lat, valid)
+
+
+def k1_info(args, kw):
+    src_lat, src_valid, feats, w, K, qry_lat, qry_valid = k1_args(args, kw)
+    G, N, C = feats.shape
+    Gw, _, _, Cout = w.shape
+    NQ = N if qry_lat is None else qry_lat.shape[1]
+    hits = conv_hits(src_lat, src_valid, K, qry_lat, qry_valid)
+    rows = src_valid if qry_lat is None else qry_valid
+    return (rows, [(src_lat, src_valid)],
+            conv_cost(G, N, NQ, C, Cout, Gw, K, hits, qry_lat is None),
+            dict(G=G, N=N, NQ=NQ, C=C, Cout=Cout, K=K))
+
+
+def dfeats_info(args, kw):
+    """Feature backward: K1 with the query table as the source."""
+    src_lat, src_valid, w, K, gout, qry_lat, qry_valid = \
+        (list(args) + [None, None])[:7]
+    G, NQ, Cout = gout.shape
+    N, C = src_lat.shape[1], w.shape[2]
+    hits = conv_hits(src_lat, src_valid, K, qry_lat, qry_valid)
+    subm = qry_lat is None
+    tables = [(src_lat, src_valid)] if subm else [(qry_lat, qry_valid)]
+    return (src_valid, tables,
+            conv_cost(G, NQ, N, Cout, C, w.shape[0], K, hits, subm),
+            dict(G=G, N=NQ, NQ=N, C=Cout, Cout=C, K=K))
+
+
+def dw_info(args, kw):
+    src_lat, src_valid, feats, gout, K, Gw, qry_lat, qry_valid = \
+        (list(args) + [None, None])[:8]
+    G, N, C = feats.shape
+    NQ, Cout = gout.shape[1], gout.shape[2]
+    hits = conv_hits(src_lat, src_valid, K, qry_lat, qry_valid)
+    return (None, [(src_lat, src_valid)],
+            dw_cost(G, N, NQ, C, Cout, Gw, K, hits, qry_lat is None),
+            dict(G=G, N=N, NQ=NQ, C=C, Cout=Cout, Gw=Gw, K=K))
+
+
+def total(stats):
+    """Summed ms, plain ms, bound (over all forms' bytes and FLOPs) and the
+    largest absolute error of a replay's forms."""
+    ms_b, by = bound(sum(f["bytes"] for f in stats.values()),
+                     sum(f["flops"] for f in stats.values()))
+    return dict(ms=sum(f["ms"] for f in stats.values()),
+                plain_ms=sum(f["plain_ms"] for f in stats.values()),
+                bound_ms=ms_b, bound_by=by,
+                max_abs=max(f["max_abs"] for f in stats.values()))
+
+
+def phase_k3(model, dev, needed):
+    """Phase 8: record and replay every K1 and K3 call of one training
+    step of one full-width scene.  Returns (K1 totals, K3 totals)."""
+    import torch
+    import cagroup3d_tpu_torch.ops.sparse_conv as ops_sc
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.ops.sparse_conv import (
+        sparse_conv, sparse_conv_dfeats, sparse_conv_dfeats_plain,
+        sparse_conv_dw, sparse_conv_dw_plain, sparse_conv_plain)
+
+    fwd_calls, dfe_calls, dw_calls = [], [], []
+    core_conv.sparse_conv = recorder(sparse_conv, fwd_calls)
+    ops_sc.sparse_conv_dfeats = recorder(sparse_conv_dfeats, dfe_calls)
+    ops_sc.sparse_conv_dw = recorder(sparse_conv_dw, dw_calls)
+    try:
+        t0 = time.time()
+        batch1 = synthetic_train_batch(10, dev, 1, N_POINTS)
+        loss, _, _ = model.forward_train(batch1,
+                                         torch.Generator().manual_seed(0))
+        loss.backward()
+        torch.cuda.synchronize()
+        step1_s = time.time() - t0
+    finally:
+        core_conv.sparse_conv = sparse_conv
+        ops_sc.sparse_conv_dfeats = sparse_conv_dfeats
+        ops_sc.sparse_conv_dw = sparse_conv_dw
+    model.zero_grad(set_to_none=True)
+    fwd_stats = replay(fwd_calls, [k1_form(i, fwd_calls)
+                                   for i in range(len(fwd_calls))],
+                       sparse_conv, sparse_conv_plain, k1_info, 2)
+    dfe_stats = replay(dfe_calls, bwd_forms(
+        dfe_calls, lambda a: (a[4].shape[0], a[3], len(a) > 5 and
+                              a[5] is not None)),
+        sparse_conv_dfeats, sparse_conv_dfeats_plain, dfeats_info, 2)
+    dw_stats = replay(dw_calls, bwd_forms(
+        dw_calls, lambda a: (a[2].shape[0], a[4], len(a) > 6 and
+                             a[6] is not None)),
+        sparse_conv_dw, sparse_conv_dw_plain, dw_info, 2)
+    for kind, st_ in (("k1_train_forward", fwd_stats),
+                      ("k1_feature_backward", dfe_stats),
+                      ("k3_weight_backward", dw_stats)):
+        for name, f in sorted(st_.items()):
+            emit({"phase": "k3", "kernel": kind, "form": name, **f})
+    bad = [k for st_ in (fwd_stats, dfe_stats, dw_stats)
+           for k, f in st_.items() if not f["ok"]]
+    missing = [p for p in needed if not any(n.startswith(p) for n in dw_stats)
+               or not any(n.startswith(p) for n in dfe_stats)]
+    if bad or missing:
+        fail("k3", f"a training-step kernel call disagrees with its plain "
+                   f"version or is unsorted ({bad}), or a form is missing "
+                   f"({missing})")
+    emit({"phase": "k3", "ok": True, "step_seconds": round(step1_s, 3),
+          "k1_forward_calls": len(fwd_calls),
+          "k1_backward_calls": len(dfe_calls), "k3_calls": len(dw_calls)})
+    k1_train = total({**{"f" + k: v for k, v in fwd_stats.items()},
+                      **{"b" + k: v for k, v in dfe_stats.items()}})
+    return k1_train, total(dw_stats)
+
+
+def phase_train(model, dev, gpu, power, opt_cfg, n_points=N_POINTS):
+    """Phase 9: B-scene training steps at full width.  Returns the
+    launch counts of the timed steps."""
+    import torch
+    from cagroup3d_tpu_torch.ops.segsum import segment_sums
+    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_dw
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    opt, _ = build_optimizer(model, opt_cfg, STEPS_PER_EPOCH)
+    step = make_train_step(model, opt, torch.Generator().manual_seed(1),
+                           device=dev)
+    batches = [synthetic_train_batch(20 + i, dev, TRAIN_B, n_points)
+               for i in range(TRAIN_STEPS + 1)]
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step(batches[0], 0.0)                                      # warm-up
+    torch.cuda.synchronize()
+    sparse_conv.launches = sparse_conv_dw.launches = 0
+    segment_sums.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, tbs = [], [], []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, tb = step(b, 0.0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        tbs.append({k: float(v) for k, v in tb.items()})
+    train_launches = {"sparse_conv": sparse_conv.launches,
+                      "sparse_conv_dw": sparse_conv_dw.launches,
+                      "segsum": segment_sums.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    groups = {}
+    for k, p in model.named_parameters():
+        g_ = groups.setdefault(k.split(".")[0], dict(n=0, finite=True,
+                                                     sq=0.0, zero=0))
+        g_["n"] += 1
+        g_["finite"] &= p.grad is not None and bool(
+            torch.isfinite(p.grad).all())
+        if p.grad is not None:
+            n2 = float(p.grad.double().pow(2).sum())
+            g_["sq"] += n2
+            g_["zero"] += n2 == 0.0
+    after = model.state_dict()
+    params = {k for k, _ in model.named_parameters()}
+    changed = {kind: sum(not torch.equal(before[k], after[k]) for k in after
+                         if (kind == "params") == (k in params))
+               for kind in ("params", "buffers")}
+    finite = all(map(lambda x: x == x and abs(x) < float("inf"),
+                     losses + [v for t in tbs for v in t.values()]))
+    grads_ok = all(g_["finite"] and g_["sq"] > 0 for g_ in groups.values())
+    ok = (finite and grads_ok and changed["params"] > 0 and
+          changed["buffers"] > 0 and train_launches["sparse_conv"] > 0 and
+          train_launches["sparse_conv_dw"] > 0)
+    emit({"phase": "train", "ok": ok, "gpu": gpu, "power_limit": power,
+          "scenes_per_step": TRAIN_B, "points_per_scene": n_points,
+          "steps": TRAIN_STEPS, "ms_per_step": step_ms,
+          "median_ms": sorted(step_ms)[len(step_ms) // 2],
+          "peak_memory_gb": peak_gb, "losses": losses, "tb": tbs[-1],
+          "grad_norm_by_module": {k: g_["sq"] ** 0.5
+                                  for k, g_ in groups.items()},
+          "zero_grad_params": {k: g_["zero"] for k, g_ in groups.items()},
+          "changed": changed, "launches": train_launches})
+    if not ok:
+        fail("train", "non-finite loss or gradients, a module without "
+                      "gradient, nothing updated, or K1/K3 not launched")
+    return train_launches
+
+
+def phase_train_reference(dev, n_names):
+    """Phase 10: the tiny training step on the card against the CPU."""
+    import torch
+    ttc, _, _ = tiny_train_config()
+    cpu_m = build_model(ttc, n_names, "cpu", seed=1, train=True)
+    with torch.no_grad():
+        # zero votes: a voted point floors into its per-class voxel, and
+        # one f32 ulp of a random vote (the card sums BN statistics in
+        # another order) moves boundary points into other voxels, so the
+        # two devices would train on different class maps
+        cpu_m.get_parameter("dense_head.offset_block.6.kernel").zero_()
+    gpu_m = copy.deepcopy(cpu_m).to(dev)
+    tb_cpu = synthetic_train_batch(11, "cpu", 2, **TINY_TRAIN_SCENE)
+    res = {}
+    for name_, m_, b_ in (("cpu", cpu_m, tb_cpu),
+                          ("gpu", gpu_m, {k: v.to(dev) for k, v in
+                                          tb_cpu.items()})):
+        loss, tb, _ = m_.forward_train(b_, torch.Generator().manual_seed(7))
+        loss.backward()
+        res[name_] = (float(loss.detach()),
+                      {k: float(v.detach()) for k, v in tb.items()})
+    loss_rel = abs(res["gpu"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    # the step's own sensitivity: the CPU step again with every weight
+    # scaled by 1 + 1e-7 (about one f32 ulp)
+    pert_m = copy.deepcopy(cpu_m)
+    with torch.no_grad():
+        for p_ in pert_m.parameters():
+            p_.grad = None
+            p_.mul_(1 + 1e-7)
+    pert_m.forward_train(tb_cpu, torch.Generator().manual_seed(7))[0] \
+        .backward()
+    reports, ok = {}, loss_rel < 1e-3
+    for pre in ("backbone_3d.", "dense_head.", "roi_head."):
+        card, noise = grad_report(gpu_m, cpu_m, pre), \
+            grad_report(pert_m, cpu_m, pre)
+        card["noise_worst_rel"] = noise["worst_rel"]
+        card["noise_vector_rel"] = noise["vector_rel"]
+        card["ok"] = (card["floor_ok"] and
+                      card["worst_rel"] <= max(TOL, 2 * noise["worst_rel"])
+                      and card["vector_rel"] <=
+                      max(TOL, 2 * noise["vector_rel"]))
+        ok &= card["ok"]
+        reports[pre] = card
+    emit({"phase": "train-reference", "ok": ok, "scenes": 2,
+          "loss_cpu": res["cpu"][0], "loss_gpu": res["gpu"][0],
+          "loss_rel": loss_rel, "tb_cpu": res["cpu"][1],
+          "tb_gpu": res["gpu"][1], "grads": reports})
+    if not ok:
+        fail("train-reference", "card and CPU training steps disagree")
+    return ttc, tb_cpu
+
+
+def phase_learn(dev, ttc, n_names, batch, opt_cfg):
+    """Phase 11: the tiny model's loss falls on one fixed batch."""
+    import torch
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    learn_m = build_model(ttc, n_names, "cpu", seed=1, train=True).to(dev)
+    lopt, _ = build_optimizer(learn_m, opt_cfg, STEPS_PER_EPOCH)
+    lstep = make_train_step(learn_m, lopt, torch.Generator().manual_seed(0),
+                            device=dev)
+    lb = {k: v.to(dev) for k, v in batch.items()}
+    curve = [float(lstep(lb, 0.0)[0]) for _ in range(LEARN_STEPS)]
+    drop = 1.0 - curve[-1] / curve[0]
+    ok = all(c == c for c in curve) and drop >= LEARN_MARGIN
+    emit({"phase": "learn", "ok": ok, "steps": LEARN_STEPS, "losses": curve,
+          "drop": drop, "required_drop": LEARN_MARGIN})
+    if not ok:
+        fail("learn", f"the loss fell by {drop:.3f}, less than nine tenths "
+                      f"of the JAX package's {JAX_LEARN_DROP}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -117,12 +631,13 @@ def main():
     try:
         from cagroup3d_tpu_torch.core import sparse_conv as core_conv
         from cagroup3d_tpu_torch.core import voxelize as core_vox
-        from cagroup3d_tpu_torch.models import load_model_config
+        from cagroup3d_tpu_torch.models import load_config, load_model_config
+        from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
+            bias_init_with_prob
         from cagroup3d_tpu_torch.ops import build
         from cagroup3d_tpu_torch.ops.segsum import (segment_sums,
                                                     segment_sums_plain)
-        from cagroup3d_tpu_torch.ops.sparse_conv import (sources_sorted,
-                                                         sparse_conv,
+        from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
                                                          sparse_conv_plain)
         from cagroup3d_tpu_torch.core.hashing import INVALID_KEY, pack_coords
         from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
@@ -147,8 +662,11 @@ def main():
 
     # 2. build ----------------------------------------------------------
     t0 = time.time()
-    libs = {n: os.path.relpath(build.build(n), HERE)
-            for n in ("sparse_conv", "segsum")}
+    from concurrent.futures import ThreadPoolExecutor
+    names_cu = ("sparse_conv", "segsum")
+    with ThreadPoolExecutor(len(names_cu)) as ex:     # one nvcc per source
+        libs = dict(zip(names_cu, (os.path.relpath(p, HERE) for p in
+                                   ex.map(build.build, names_cu))))
     for n in libs:
         build.load(n)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
@@ -160,12 +678,6 @@ def main():
     mc.DENSE_HEAD.FINE_CAP = FINE_CAP
     model = build_model(mc, len(names), dev, seed=0)
     k1_calls, k2_calls = [], []
-
-    def recorder(fn, log):
-        def rec(*args, **kw):
-            log.append((args, kw))
-            return fn(*args, **kw)
-        return rec
 
     core_conv.sparse_conv = recorder(sparse_conv, k1_calls)
     core_vox.segment_sums = recorder(segment_sums, k2_calls)
@@ -183,34 +695,10 @@ def main():
           "overflow": int(out["overflow"].sum())})
 
     # 4. K1 against its plain version at every recorded call ------------
-    forms = {}
-    for i, (args, kw) in enumerate(k1_calls):
-        form = k1_form(i, k1_calls)
-        got = sparse_conv(*args, **kw)
-        ref = sparse_conv_plain(*args, **kw)
-        qv = kw.get("qry_valid", args[6] if len(args) > 6 else None)
-        valid = qv if qv is not None else args[1]
-        f = forms.setdefault(form, dict(calls=0, max_rel=0.0, max_row=0.0,
-                                        max_abs=0.0, ms=0.0, plain_ms=0.0,
-                                        zero_ok=True, sorted=True, shapes=[]))
-        f["calls"] += 1
-        f["max_rel"] = max(f["max_rel"], rel_err(got, ref))
-        f["max_row"] = max(f["max_row"], row_err(got, ref))
-        f["max_abs"] = max(f["max_abs"], float((got - ref).abs().max()))
-        f["zero_ok"] &= bool((got[~valid] == 0).all())
-        f["sorted"] &= sources_sorted(args[0], args[1])
-        K = args[4]
-        f["ms"] += time_ms(lambda: sparse_conv(*args, **kw), 5)
-        f["plain_ms"] += time_ms(lambda: sparse_conv_plain(*args, **kw),
-                                 2 if K >= 9 else 5)
-        shape = dict(G=args[2].shape[0], N=args[2].shape[1],
-                     NQ=got.shape[1], C=args[2].shape[2], Cout=got.shape[2],
-                     K=K)
-        if shape not in f["shapes"]:
-            f["shapes"].append(shape)
+    forms = replay(k1_calls, [k1_form(i, k1_calls)
+                              for i in range(len(k1_calls))],
+                   sparse_conv, sparse_conv_plain, k1_info, 2)
     for name, f in sorted(forms.items()):
-        f["ok"] = (f["max_rel"] < TOL and f["max_row"] < ROW_TOL and
-                   f["zero_ok"] and f["sorted"])
         emit({"phase": "k1", "form": name, **f})
     k1_ok = all(f["ok"] for f in forms.values())
     needed = ("a_", "b_", "c_", "d_", "e_", "f_")
@@ -219,9 +707,6 @@ def main():
         fail("k1", f"K1 disagrees with its plain version, a source table "
                    f"is not key-sorted or a form is missing: "
                    f"missing={missing}")
-    k1_stats = dict(max_abs=max(f["max_abs"] for f in forms.values()),
-                    ms=sum(f["ms"] for f in forms.values()),
-                    plain_ms=sum(f["plain_ms"] for f in forms.values()))
 
     # 5. K2 against its plain version --------------------------------------
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -244,18 +729,39 @@ def main():
         ok = counts_ok and rel < TOL and row < ROW_TOL
         ms = time_ms(lambda: segment_sums(*args), 10)
         plain_ms = time_ms(lambda: segment_sums_plain(*args), 10)
+        # bound: the rows the early stop needs (runs < cap), keys and bf16
+        # features read once, f32 sums and i32 counts written once
+        Gk, Pk, Fk = fs_.shape
+        head = torch.ones_like(sk_, dtype=torch.bool)
+        head[:, 1:] = sk_[:, 1:] != sk_[:, :-1]
+        okk = sk_ != INVALID_KEY
+        uid = torch.cumsum((head & okk).int(), 1) - 1
+        need = okk & (uid < cap)
+        rows = int(need.sum())
+        b_ms, b_by = bound(rows * (4 + 2 * Fk) + Gk * cap * (4 * Fk + 4),
+                           rows * Fk)
+        # the library yardstick: one index_add_ of the rows into their
+        # segments (ids precomputed), the sums without the counts
+        seg = (torch.where(need, uid, torch.full_like(uid, cap)) +
+               torch.arange(Gk, device=dev)[:, None] * (cap + 1)
+               ).reshape(-1)
+        rows_f = fs_.reshape(-1, Fk).float()
+        lib_ms = time_ms(lambda: torch.zeros(
+            Gk * (cap + 1), Fk, device=dev).index_add_(0, seg, rows_f), 10)
         emit({"phase": "k2", "case": name, "ok": ok,
               "G": sk_.shape[0], "P": sk_.shape[1], "F": fs_.shape[2],
               "cap": cap, "max_unique_per_group": n_unique,
               "overflows": n_unique > cap, "counts_exact": counts_ok,
               "max_rel": rel, "max_row": row, "ms": ms,
-              "plain_ms": plain_ms})
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "rows_needed": rows, "library_ms": lib_ms})
         if not ok:
             fail("k2", f"K2 disagrees with its plain version ({name})")
         k2_stats["max_abs"] = max(k2_stats["max_abs"],
                                   float((ns - rs).abs().max()))
         if name == "main_path":
-            k2_stats["ms"], k2_stats["plain_ms"] = ms, plain_ms
+            k2_stats.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms)
 
     # 6. requests through the main path, counting launches ---------------
     sparse_conv.launches = 0
@@ -290,19 +796,10 @@ def main():
           "overflow": [int(o["overflow"].sum()) for o in outs]})
 
     # 7. reference: a tiny model on the card vs the same model on the CPU --
-    tc, _ = load_model_config(CFG)
-    tc.BACKBONE_3D.update(CAPS={1: 2048, 2: 2048, 4: 1024, 8: 512, 16: 256,
-                                32: 128, 64: 32, 128: 16, 256: 8, 512: 8},
-                          PLANES=16, SPP_PLANES=16, OUT_CHANNELS=16)
-    tc.INPUT_CAP = 2048
-    tc.DENSE_HEAD.update(OUT_CHANNELS=16, FINE_CAP=1024, EXPAND_CAP=1024,
-                         MAX_ROIS=64, NMS_PER_CLS_CAP=32)
-    tc.DENSE_HEAD.NMS_CONFIG.NMS_PRE = 256
-    tc.ROI_HEAD.update(MLPS=[[16, 32, 32]], REG_FC=[32, 32], GRID_CAP=2048,
-                       NMS_PER_CLS_CAP=32, MAX_OUT=32)
+    tc, _, _ = tiny_config()
     cpu_model = build_model(tc, len(names), "cpu", seed=1)
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    small = dict(n_points=4000, room=(3.0, 3.0, 2.5), n_objects=4)
+    small = TINY_SCENE
     ref = cpu_model.forward_eval(synthetic_request(3, "cpu", **small),
                                  cur_epoch=10)
     got = gpu_model.forward_eval(synthetic_request(3, dev, **small),
@@ -320,19 +817,42 @@ def main():
     if not ok or int(ref["pred_valid"].sum()) == 0:
         fail("reference", "card and CPU disagree on the tiny model")
 
+    # 8-11. the training step ------------------------------------------
+    full_cfg = load_config(CFG)
+    model.roi_gt_aug = 0.05        # see tiny_train_config
+    with torch.no_grad():           # the prior back (see build_model)
+        model.dense_head.cls_conv.bias.fill_(bias_init_with_prob(0.01))
+    open_gate(model, train=True)
+    k1_train, k3_train = phase_k3(model, dev, needed)
+    train_launches = phase_train(model, dev, gpu, power, full_cfg.OPTIMIZATION)
+    ttc, tiny_batch = phase_train_reference(dev, len(names))
+    phase_learn(dev, ttc, len(names), tiny_batch, full_cfg.OPTIMIZATION)
+
     emit({"kernels": [
         {"name": "K1 sparse_conv", "route": "cuda",
          "source": "cagroup3d_tpu_torch/csrc/sparse_conv.cu",
          "replaces": "cagroup3d_tpu/ops/pallas_conv.py:124",
-         "launches": launches["sparse_conv"],
-         "max_abs_err": k1_stats["max_abs"], "ms": k1_stats["ms"],
-         "plain_ms": k1_stats["plain_ms"]},
+         "launches": train_launches["sparse_conv"],
+         "max_abs_err": max(k1_train["max_abs"],
+                            max(f["max_abs"] for f in forms.values())),
+         "ms": k1_train["ms"], "plain_ms": k1_train["plain_ms"],
+         "bound_ms": k1_train["bound_ms"], "bound_by": k1_train["bound_by"],
+         "library_ms": None},
         {"name": "K2 segsum", "route": "cuda",
          "source": "cagroup3d_tpu_torch/csrc/segsum.cu",
          "replaces": "cagroup3d_tpu/ops/pallas_segsum.py:64",
          "launches": launches["segsum"],
          "max_abs_err": k2_stats["max_abs"], "ms": k2_stats["ms"],
-         "plain_ms": k2_stats["plain_ms"]}]})
+         "plain_ms": k2_stats["plain_ms"], "bound_ms": k2_stats["bound_ms"],
+         "bound_by": k2_stats["bound_by"],
+         "library_ms": k2_stats["library_ms"]},
+        {"name": "K3 sparse_conv_dw", "route": "cuda",
+         "source": "cagroup3d_tpu_torch/csrc/sparse_conv.cu",
+         "replaces": "cagroup3d_tpu/ops/pallas_conv.py:472",
+         "launches": train_launches["sparse_conv_dw"],
+         "max_abs_err": k3_train["max_abs"], "ms": k3_train["ms"],
+         "plain_ms": k3_train["plain_ms"], "bound_ms": k3_train["bound_ms"],
+         "bound_by": k3_train["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

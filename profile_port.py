@@ -22,6 +22,13 @@ open, class prior lifted), answers three warm-up 100k-point scenes
    scene, the ten largest kernels, and the busy share = kernel ms per
    scene / median wall ms of phase 1 (one stream, so kernels do not
    overlap).  Also the peak device memory of the run.
+4. train   -- the training step of ``chip_smoke.py`` phase 9 (B = 4
+   full-width scenes, AdamW): after one warm-up step, the host-clock ms of
+   ``--train-steps`` steps split into forward (``forward_train`` with the
+   losses), ``backward()`` and the optimizer update, each bracketed by
+   synchronizations; then ``torch.profiler`` over one step: kernel ms and
+   launches per step, K1 and K3 kernel ms, busy share = kernel ms / step
+   ms, the ten largest kernels, and the peak device memory.
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -61,6 +68,7 @@ def timed(fn, name, times):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenes", type=int, default=9)
+    ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     args = ap.parse_args()
@@ -167,6 +175,73 @@ def main():
           "top_kernels": [{"name": n[:80], "ms_per_scene": v[0] / n_prof,
                            "launches_per_scene": v[1] / n_prof}
                           for n, v in top],
+          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
+
+    # 4. train -------------------------------------------------------------
+    from chip_smoke import (STEPS_PER_EPOCH, TRAIN_B, open_gate,
+                            synthetic_train_batch)
+    from cagroup3d_tpu_torch.models import load_config
+    from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
+        bias_init_with_prob
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    with torch.no_grad():           # chip_smoke.py's training settings
+        model.dense_head.cls_conv.bias.fill_(bias_init_with_prob(0.01))
+    open_gate(model, train=True)
+    model.roi_gt_aug = 0.05
+    opt, _ = build_optimizer(model, load_config(CFG).OPTIMIZATION,
+                             STEPS_PER_EPOCH)
+    gen = torch.Generator().manual_seed(1)
+    tb = [synthetic_train_batch(20 + i, dev, TRAIN_B, N_POINTS)
+          for i in range(2)]
+    split = defaultdict(list)
+
+    def train_step(batch):
+        opt.zero_grad()
+        for part in ("forward", "backward", "update", "step"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if part == "forward":
+                loss = model.forward_train(batch, gen)[0]
+            elif part == "backward":
+                loss.backward()
+            elif part == "update":
+                opt.step()
+            torch.cuda.synchronize()
+            split[part].append((time.perf_counter() - t0) * 1e3)
+        split["step"][-1] = sum(split[k][-1] for k in
+                                ("forward", "backward", "update"))
+
+    train_step(tb[0])                                   # warm-up
+    split.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(args.train_steps):
+        train_step(tb[i % 2])
+    step_med = statistics.median(split["step"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(tb[1])
+        torch.cuda.synchronize()
+    kernels = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            k = kernels[e.name]
+            k[0] += e.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    total_ms = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "train", **card, "scenes_per_step": TRAIN_B,
+          "steps": args.train_steps,
+          "median_ms": {k: statistics.median(v) for k, v in split.items()},
+          "kernel_ms_per_step": total_ms if kernels else "not measured",
+          "kernel_launches_per_step": sum(v[1] for v in kernels.values()),
+          "k1_ms_per_step": sum(v[0] for n, v in kernels.items()
+                                if "sparse_conv_kernel" in n),
+          "k3_ms_per_step": sum(v[0] for n, v in kernels.items()
+                                if "sparse_conv_dw" in n),
+          "busy_share": (total_ms / step_med if kernels
+                         else "not measured"),
+          "top_kernels": [{"name": n[:80], "ms_per_step": v[0],
+                           "launches_per_step": v[1]} for n, v in top],
           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
 
     if args.out:

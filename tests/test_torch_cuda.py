@@ -6,7 +6,11 @@ Imports no JAX, so it runs on a machine with the card and no JAX:
 
 Without a CUDA device every test skips.  Bars: K1 relative error < 2e-2
 and per-row error < 1e-3 (``_row``) with invalid rows exactly zero; K2
-counts exact, sums within the same two bars.
+counts exact, sums within the same two bars; K3 and K1's feature backward
+within both bars of their plain versions (both sides round to bf16 and
+sum in f32), K3 bit-identical across two runs, and the autograd
+Function's gradients within 2e-2 of plain autograd through
+``sparse_conv_plain`` (which does not round the cotangent to bf16).
 """
 import pytest
 import torch
@@ -14,7 +18,12 @@ import torch
 from cagroup3d_tpu_torch.core.hashing import pack_coords
 from cagroup3d_tpu_torch.core.voxelize import unique_voxels
 from cagroup3d_tpu_torch.ops.segsum import segment_sums, segment_sums_plain
-from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_plain
+from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
+                                                 sparse_conv_dfeats,
+                                                 sparse_conv_dfeats_plain,
+                                                 sparse_conv_dw,
+                                                 sparse_conv_dw_plain,
+                                                 sparse_conv_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +98,62 @@ def test_segment_sums_kernel(dev, side, cap):
     assert bool((counts == rcounts).all())
     assert _rel(sums, rsums) < 2e-2
     assert _row(sums, rsums) < 1e-3
+
+
+# the main-path forms of K3 and K1's backward, at small sizes:
+# (a) subm k3 3->64 and 512->512, (b) down k3 at coords, (c) k3 64->64,
+# (d) per-class k9, (e) per-class k5, (f) RoI k5 at coords 64->128, and
+# weight groups shared by several groups (Gw < G)
+BWD_FORMS = [(3, 1, 1, 3, 64, False), (3, 1, 1, 512, 512, False),
+             (3, 1, 1, 64, 128, True), (3, 1, 1, 64, 64, False),
+             (9, 3, 3, 64, 64, False), (5, 3, 3, 64, 64, False),
+             (5, 1, 1, 64, 128, True), (5, 3, 1, 32, 64, False)]
+
+
+def _bwd_case(dev, k, G, Gw, C, Cout, query):
+    lat, valid, feats = _tables(k, G, 900, C, 512, 12, dev)
+    w = torch.randn(Gw, k ** 3, C, Cout, device=dev) * 0.1
+    q = _tables(k + 1, G, 700, 1, 384, 12, dev)[:2] if query else (None, None)
+    NQ = q[0].shape[1] if query else lat.shape[1]
+    gout = torch.randn(G, NQ, Cout, device=dev)
+    return lat, valid, feats, w, q, gout
+
+
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query", BWD_FORMS)
+def test_sparse_conv_dw_kernel(dev, k, G, Gw, C, Cout, query):
+    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query)
+    before = sparse_conv_dw.launches
+    got = sparse_conv_dw(lat, valid, feats, gout, k, Gw, *q)
+    torch.cuda.synchronize()
+    assert sparse_conv_dw.launches == before + 1
+    ref = sparse_conv_dw_plain(lat, valid, feats, gout, k, Gw, *q)
+    assert got.shape == (Gw, k ** 3, C, Cout)
+    assert _rel(got, ref) < 2e-2
+    assert _row(got, ref) < 1e-3
+    again = sparse_conv_dw(lat, valid, feats, gout, k, Gw, *q)
+    assert torch.equal(got, again)          # fixed summation order
+
+
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query", BWD_FORMS)
+def test_sparse_conv_dfeats_kernel(dev, k, G, Gw, C, Cout, query):
+    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query)
+    got = sparse_conv_dfeats(lat, valid, w, k, gout, *q)
+    ref = sparse_conv_dfeats_plain(lat, valid, w, k, gout, *q)
+    assert got.shape == feats.shape
+    assert _rel(got, ref) < 2e-2
+    assert _row(got, ref) < 1e-3
+    assert bool((got[~valid] == 0).all())
+
+
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query", BWD_FORMS)
+def test_sparse_conv_autograd(dev, k, G, Gw, C, Cout, query):
+    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query)
+    grads = []
+    for fn in (sparse_conv, sparse_conv_plain):
+        f = feats.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        (fn(lat, valid, f, ww, k, *q) * gout).sum().backward()
+        grads.append((f.grad, ww.grad))
+    (gf, gw), (rf, rw) = grads
+    assert _rel(gf, rf) < 2e-2
+    assert _rel(gw, rw) < 2e-2

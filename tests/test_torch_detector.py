@@ -72,7 +72,7 @@ def setup():
     # class prior so the untrained net emits proposals for the RoI head
     P["dense_head.semantic_conv.bias"] = P["dense_head.semantic_conv.bias"] * 0 + 5.0
     P["dense_head.cls_conv.bias"] = P["dense_head.cls_conv.bias"] * 0 + 2.0
-    pm = build_network(jm.model_cfg, num_class=18)
+    pm = build_network(jm.model_cfg, num_class=18, device="cpu")
     pm.load_jax_params({k: np.asarray(v) for k, v in P.items()},
                        {k: np.asarray(v) for k, v in S.items()})
     b = synthetic_batch(np.random.RandomState(0), batch_size=1,
@@ -107,7 +107,7 @@ def _jax_head(setup, cut):
 
 
 def test_load_jax_params_rejects_bad_names(setup):
-    pm = build_network(setup["jm"].model_cfg, num_class=18)
+    pm = build_network(setup["jm"].model_cfg, num_class=18, device="cpu")
     P = {k: np.asarray(v) for k, v in setup["P"].items()}
     S = {k: np.asarray(v) for k, v in setup["S"].items()}
     with pytest.raises(KeyError):
@@ -123,10 +123,11 @@ def test_load_jax_checkpoint_file(setup, tmp_path):
     from cagroup3d_tpu.training.checkpoint import save_checkpoint
     path = str(tmp_path / "ckpt.pkl")
     save_checkpoint(path, setup["P"], setup["S"])
-    pm = build_network(setup["jm"].model_cfg, num_class=18)
+    pm = build_network(setup["jm"].model_cfg, num_class=18, device="cpu")
     pm.load_jax_params(path)
     for k, v in pm.named_parameters():
-        np.testing.assert_array_equal(v.numpy(), np.asarray(setup["P"][k]))
+        np.testing.assert_array_equal(v.detach().numpy(),
+                                      np.asarray(setup["P"][k]))
 
 
 def test_voxelize_scene(setup):
@@ -255,16 +256,21 @@ def test_main_path_sources_are_key_sorted(setup, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """The port's tiny forward runs in a process where jax is blocked."""
+    """The port's tiny eval forward and one tiny training step run in a
+    process where jax and the JAX package are blocked."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
+        "sys.modules['cagroup3d_tpu'] = None\n"
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
-        "from cagroup3d_tpu_torch.models import build_network, "
-        "load_model_config\n"
-        "from cagroup3d_tpu.utils.synthetic import synthetic_batch\n"
-        "mc, names = load_model_config("
-        "'tools/cfgs/scannet_models/CAGroup3D.yaml')\n"
+        "from cagroup3d_tpu_torch.models import build_network, load_config\n"
+        "from cagroup3d_tpu_torch.parallel.mesh import make_train_step\n"
+        "from cagroup3d_tpu_torch.training.optimization import "
+        "build_optimizer\n"
+        "from cagroup3d_tpu_torch.utils.synthetic import synthetic_batch\n"
+        "from chip_smoke import synthetic_train_batch\n"
+        "cfg = load_config('tools/cfgs/scannet_models/CAGroup3D.yaml')\n"
+        "mc, names = cfg.MODEL, cfg.CLASS_NAMES\n"
         "mc.BACKBONE_3D.update(CAPS={1: 1024, 2: 1024, 4: 512, 8: 256, "
         "16: 128, 32: 64, 64: 16, 128: 8, 256: 8, 512: 8}, PLANES=8, "
         "SPP_PLANES=8, OUT_CHANNELS=8)\n"
@@ -273,14 +279,21 @@ def test_port_imports_no_jax():
         "EXPAND_CAP=128, MAX_ROIS=16, NMS_PER_CLS_CAP=16)\n"
         "mc.DENSE_HEAD.NMS_CONFIG.NMS_PRE = 64\n"
         "mc.ROI_HEAD.update(MLPS=[[8, 16, 16]], REG_FC=[16, 16], "
-        "GRID_CAP=512, NMS_PER_CLS_CAP=16, MAX_OUT=16)\n"
-        "m = build_network(mc, len(names))\n"
+        "GRID_CAP=512, NMS_PER_CLS_CAP=16, MAX_OUT=16, ROI_PER_IMAGE=8)\n"
+        "m = build_network(mc, len(names), device='cpu')\n"
         "b = synthetic_batch(np.random.RandomState(0), batch_size=1, "
         "n_points=1000, point_cap=1024, room=(3., 3., 2.5), n_objects=4)\n"
         "out = m.forward_eval({k: torch.from_numpy(b[k]) for k in "
         "('points', 'points_valid')})\n"
         "assert torch.isfinite(out['pred_boxes']).all()\n"
-        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 10)\n"
+        "step = make_train_step(m, opt, device='cpu')\n"
+        "tb = step(synthetic_train_batch(0, 'cpu', 1, n_points=1000, "
+        "room=(3., 3., 2.5), n_objects=4))[1]\n"
+        "assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
+        "assert opt.count == 1\n"
+        "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
