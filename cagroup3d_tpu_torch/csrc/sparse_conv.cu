@@ -1,5 +1,6 @@
-// K1: sparse convolution as an output-stationary gather-GEMM with the kernel
-// map built in the kernel; K3 (below): its weight gradient.
+// K1: sparse convolution as a pipelined gather-GEMM over a kernel map that
+// a block builds once and shares across its output-column tiles; K3 (below):
+// its weight gradient.
 //
 // Replaces the TPU kernel cagroup3d_tpu/ops/pallas_conv.py::_conv_kernel
 // (launched by _pallas_forward; forms subm_conv_classes_mxu, subm_conv_mxu and
@@ -10,24 +11,48 @@
 // Pallas kernel requires -- so a key's rank is its row.  Missing neighbours
 // add nothing and invalid queries give zero rows.  Submanifold convs pass the
 // source keys as the queries; conv-at-coords passes a separate query table.
+// The feature backward is the same kernel with offset-reversed, transposed
+// weights, read in place (BT: the weight slice is [Cout][C]).
 //
-// What bounds it on Hopper: at C = 64 (the head's k9/k5 convs and the RoI grid
-// conv) the gathered bytes -- each (query, offset) hit reads a 128-byte row at
-// a random address; at the backbone's 256/512-channel convs the FLOPs.
+// What bounds it on Hopper.  The bound (the hits' FLOPs, or each input read
+// once) is tens of µs a call; what the kernel meets first is issue and
+// latency: a 64-query tile meets up to K^3 offsets with a few hits each, so
+// the work is many small gather-GEMM steps (at the head's k9 form about 490
+// a block, each with 64 x 64 x 64 MACs and an 8 KB weight slice), and each
+// step's instruction count, barrier and gather latency set the time.
 // Design:
-//   * a block owns 64 queries of one group and 64 output channels;
-//   * kernel map in the block: for each (dx, dy) one binary search of the
-//     query key shifted by (dx, dy, -h) in the sorted source keys, then a
-//     forward scan finds the K dz neighbours, which are contiguous in key
-//     order because z is the least significant key field; range checks on the
-//     x/y/z digits stop a shifted key from aliasing another column;
-//   * (dx, dy, dz) planes with no hit in the tile are skipped, which is most
-//     of them for the sparse per-class k9 maps;
-//   * per plane, the 64 neighbour rows are gathered (16-byte loads where
-//     aligned) into shared memory in 32-channel chunks, and four warps
-//     multiply them by the [32, 64] weight slice on the tensor cores (WMMA,
-//     bf16 in, f32 accumulate in registers).
-// Simple before fast: no cp.async/TMA pipelining and no wgmma yet.
+//   * k1_prep, one launch: the packed keys of both tables, the bf16 source
+//     rows (invalid rows zeroed, channels padded to a multiple of 16) and the
+//     bf16 weights (last two axes padded), so the wrapper launches no
+//     PyTorch kernel and C = 3 takes the tensor-core path as C = 16;
+//   * a block (8 warps) owns 64 queries of one group, a range of kernel
+//     offsets (the split: when the grid would be under two waves of 132 SMs
+//     the offsets are divided over blocks and k1_reduce sums the partial
+//     tiles in split order) and a range of 64- or 128-column tiles, which it
+//     walks with one kernel map;
+//   * the kernel map, built once in the block: the tile's queries span a
+//     narrow key range (key-sorted tables), so per dx slab two warp-wide
+//     32-ary searches bound the window of source keys the tile can reach;
+//     the window is staged in shared memory and each (query, dy) searches it
+//     once and scans its contiguous dz neighbours.  An entry packs, per
+//     (dx, dy) plane and query, the first neighbour's row and a bit per dz
+//     (K^2 x 64 ints: the whole map stays in shared memory even at K 9),
+//     and the live offsets -- most k9 offsets of a tile are empty -- are
+//     listed in offset order with their 16-row groups that have a hit;
+//   * gather-GEMM: for each (live offset, 64-channel chunk) item a pipeline
+//     stage gathers the 64 neighbour rows (cp.async 16-byte copies,
+//     zero-filled for missing rows, none for 16-row groups without a hit)
+//     and the weight slice; a stage holds two items under one barrier, and
+//     the copies of the next stage overlap the tensor-core work on the
+//     current one (mma.sync m16n8k16 bf16, f32 accumulators in registers;
+//     a warp owns 16 rows and skips items where they have no hit).  Each
+//     thread's copies are fixed, so an item costs a few instructions per
+//     copy: the instructions and the barrier of each step, not the memory
+//     system, are what set the time;
+//   * no float atomics: two calls give the same bits.
+// mma.sync, not wgmma: a step's A tile is 64 gathered rows, which no TMA copy
+// can fetch, and the steps are too small for the tensor cores to set the
+// time; wgmma is left to the K3 redesign, where dW tiles are dense.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,14 +64,8 @@ using namespace nvcuda;
 namespace {
 
 constexpr int INVALID_KEY = (1 << 30) + 1;
-constexpr int TQ = 64;       // queries per block
-constexpr int TN = 64;       // output channels per block
-constexpr int KC = 32;       // input-channel chunk
 constexpr int KMAX = 9;      // largest kernel edge
-constexpr int LDA = KC + 8;  // padded smem leading dims (multiples of 8)
-constexpr int LDB = TN + 8;
-constexpr int LDC = TN + 4;
-constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
                                            int t) {
@@ -58,133 +77,514 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
   return lo;
 }
 
-__global__ void __launch_bounds__(THREADS)
-sparse_conv_kernel(const int* __restrict__ sk, const int* __restrict__ qk,
-                   const __nv_bfloat16* __restrict__ feats,
-                   const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
-                   int N, int NQ, int C, int Cout, int Gw, int K, int sx, int sy,
-                   int ex, int ey, int ez) {
-  const int g = blockIdx.z;
-  const int q0 = blockIdx.x * TQ;
-  const int n0 = blockIdx.y * TN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int h = K / 2;
-  const int* gsk = sk + (size_t)g * N;
-  const __nv_bfloat16* gfeat = feats + (size_t)g * N * C;
-  const __nv_bfloat16* gw = w + (size_t)(g % Gw) * K * K * K * C * Cout;
-  const bool vec_a = (C % 8 == 0) && ((uintptr_t)feats % 16 == 0);
-  const bool vec_b = (Cout % 8 == 0) && ((uintptr_t)w % 16 == 0);
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  __shared__ __align__(128) __nv_bfloat16 As[TQ * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[KC * LDB];
-  __shared__ __align__(128) float Cs[TQ * LDC];
-  __shared__ int nb[KMAX][TQ];
-  __shared__ int s_mask;
-
-  // threads 0..TQ-1 own one query each
-  int key = INVALID_KEY, xd = 0, yd = 0, zd = 0;
-  if (tid < TQ && q0 + tid < NQ) {
-    key = qk[(size_t)g * NQ + q0 + tid];
-    xd = key >> sx;
-    yd = (key >> sy) & (ey - 1);
-    zd = key & (ez - 1);
+// First index of a[0, n) that is >= t; every lane of the warp calls it with
+// the same arguments and gets the answer.  Each round probes 32 evenly spaced
+// keys, so ~4 dependent loads cover 65536 keys.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
+                                                int n, int t, int lane) {
+  int lo = 0, hi = n;
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int i = lo + lane * step;
+    const int c = __popc(__ballot_sync(FULL, i < hi && a[i] < t));
+    const int nlo = c > 0 ? lo + (c - 1) * step + 1 : lo;
+    hi = min(hi, lo + c * step);
+    lo = nlo;
   }
-  const bool qvalid = key != INVALID_KEY;
+  const int i = lo + lane;
+  return lo + __popc(__ballot_sync(FULL, i < hi && a[i] < t));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TN / 16];
+__device__ __forceinline__ int pack_key(const int* lat, bool valid, int margin,
+                                        int sx, int sy, int ex, int ey,
+                                        int ez) {
+  const int x = lat[0] + margin, y = lat[1] + margin, z = lat[2] + margin;
+  const bool in = x >= 0 && x < ex && y >= 0 && y < ey && z >= 0 && z < ez;
+  return valid && in ? (x << sx) | (y << sy) | z : INVALID_KEY;
+}
+
+// ---------------------------------------------------------------- K1 -----
+
+constexpr int K1_TQ = 64;          // queries per block
+constexpr int K1_THREADS = 256;    // 8 warps
+constexpr int K1_KC = 64;          // input channels per pipeline step
+constexpr int K1_LDA = K1_KC + 8;  // smem row stride (bf16) of A, and of B^T
+constexpr int K1_NSTAGE = 2;       // pipeline stages
+constexpr int K1_ITEMS = 2;        // (offset, channel chunk) items a stage
+constexpr int K1_WCAP = 2048;      // source keys of a staged window
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight f32 values from row[c0, c0 + 8) (zeros past n or where !ok), rounded
+// to bf16 and packed for one 16-byte store.
+__device__ __forceinline__ uint4 bf16x8(const float* row, int c0, int n,
+                                        bool ok, bool vec) {
+  float v[8];
+  if (ok && vec && c0 + 8 <= n) {
+    const float4 x = *reinterpret_cast<const float4*>(row + c0);
+    const float4 y = *reinterpret_cast<const float4*>(row + c0 + 4);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+  } else {
 #pragma unroll
-  for (int j = 0; j < TN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int u = 0; u < 8; ++u) v[u] = ok && c0 + u < n ? row[c0 + u] : 0.f;
+  }
+  uint4 r;
+  uint32_t* p = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * u], v[2 * u + 1]);
+    p[u] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return r;
+}
 
-  for (int dxi = 0; dxi < K; ++dxi) {
-    for (int dyi = 0; dyi < K; ++dyi) {
-      if (tid == 0) s_mask = 0;
-      __syncthreads();
-      if (tid < TQ) {
-        const int dx = dxi - h, dy = dyi - h;
-        const bool okxy = qvalid && xd + dx >= 0 && xd + dx < ex &&
-                          yd + dy >= 0 && yd + dy < ey;
-        const int base = key + dx * (1 << sx) + dy * (1 << sy);
-        int pos = okxy ? lower_bound(gsk, N, base - h) : N;
-        int mask = 0;
-        for (int j = 0; j < K; ++j) {
-          const int dz = j - h, t = base + dz;
-          int r = -1;
-          if (okxy && zd + dz >= 0 && zd + dz < ez) {
-            while (pos < N && gsk[pos] < t) ++pos;
-            if (pos < N && gsk[pos] == t) r = pos;
-          }
-          nb[j][tid] = r;
-          if (r >= 0) mask |= 1 << j;
-        }
-        if (mask) atomicOr(&s_mask, mask);
+// One launch of operand preparation: source (and query) keys, bf16 source
+// rows [G, N, Cp] with invalid rows zeroed, bf16 weights [Gw*K^3, Rp, Sp];
+// rows and weights go 8 values (one 16-byte store) per item.
+__global__ void spconv_k1_prep(const int* __restrict__ slat,
+                               const uint8_t* __restrict__ svalid,
+                               const float* __restrict__ feats,
+                               const int* __restrict__ qlat,
+                               const uint8_t* __restrict__ qvalid,
+                               const float* __restrict__ w, int* sk, int* qk,
+                               __nv_bfloat16* fb, __nv_bfloat16* wb, int nsrc,
+                               int nqry, int C, int Cp, int nslice, int R,
+                               int S, int Rp, int Sp, int margin, int sx,
+                               int sy, int ex, int ey, int ez) {
+  const int fg = Cp / 8, wg = Sp / 8;
+  const int nf = nsrc * fg, total = nsrc + nqry + nf + nslice * Rp * wg;
+  const bool fvec = C % 4 == 0, wvec = S % 4 == 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += gridDim.x * blockDim.x) {
+    int j = i;
+    if (j < nsrc) {
+      sk[j] = pack_key(slat + 3 * j, svalid[j], margin, sx, sy, ex, ey, ez);
+    } else if ((j -= nsrc) < nqry) {
+      qk[j] = pack_key(qlat + 3 * j, qvalid[j], margin, sx, sy, ex, ey, ez);
+    } else if ((j -= nqry) < nf) {
+      const int r = j / fg, c0 = (j - r * fg) * 8;
+      *reinterpret_cast<uint4*>(fb + (size_t)r * Cp + c0) =
+          bf16x8(feats + (size_t)r * C, c0, C, svalid[r], fvec);
+    } else {
+      j -= nf;
+      const int t = j / wg, s0 = (j - t * wg) * 8, r = t % Rp, a = t / Rp;
+      *reinterpret_cast<uint4*>(wb + (size_t)t * Sp + s0) =
+          bf16x8(w + ((size_t)a * R + r) * S, s0, S, r < R, wvec);
+    }
+  }
+}
+
+struct K1Args {
+  const int* sk;
+  const int* qk;
+  const __nv_bfloat16* fb;  // [G, N, Cp]
+  const __nv_bfloat16* wb;  // [Gw, K^3, wr, ws]: [Cp, Coutp], or BT [Coutp, Cp]
+  float* out;               // [split, G, NQ, Cout] (out itself when split 1)
+  int N, NQ, Cp, Cout, Gw, K, wr, ws;
+  int col_inner, split, per_split;
+  int sx, sy, ex, ey, ez;
+};
+
+// Shared memory of a block: K1_NSTAGE stages of K1_ITEMS tiles of A
+// [TQ][LDA] and of B ([KC][TN + 8], or B^T [TN][LDA]), then ints: the map
+// [K^2][TQ], the offsets' row-group masks, the live list and its step info
+// [K^3] each, the staged window, the tile's query keys, the slab windows and
+// a few reduction slots.
+template <int TN, bool BT>
+struct K1Smem {
+  static constexpr int TQ = K1_TQ, NST = K1_NSTAGE, IT = K1_ITEMS;
+  static constexpr int A = NST * IT * TQ * K1_LDA;  // bf16 elements
+  static constexpr int B = NST * IT * (BT ? TN * K1_LDA : K1_KC * (TN + 8));
+  static size_t bytes(int K) {
+    return 2 * (size_t)(A + B) + 4 * ((size_t)K * K * TQ + 3 * K * K * K +
+                                      K1_WCAP + TQ + 2 * KMAX + 16);
+  }
+};
+
+// Issue the cp.async copies of one pipeline step -- the TQ neighbour rows of
+// a live offset o (zero-filled where missing; 16-row groups without a
+// neighbour, which the MMA skips, not at all), channels [c0, c0 + KC), and
+// the offset's weight slice -- into one stage.  `info` locates the offset's
+// plane in the map and its dz.  A map entry packs, per (dx, dy) plane and
+// query, the row of the first of the plane's dz neighbours that exist
+// (sorted keys: they are consecutive rows) and a bit per dz, so neighbour dz
+// is at row + popc(bits below dz).  Each thread's rows and segments are
+// fixed, so a step costs a few instructions per copy.
+template <int TN, bool BT>
+__device__ __forceinline__ void k1_load(const K1Args& a, const int* s_map,
+                                        int info, int o, int c0, int n0,
+                                        const __nv_bfloat16* gf,
+                                        const __nv_bfloat16* gw, int K3,
+                                        __nv_bfloat16* As, __nv_bfloat16* Bs,
+                                        int tid) {
+  constexpr int TQ = K1_TQ, THREADS = K1_THREADS;
+  const int pbase = info & 0x3fff, dz = (info >> 14) & 15;
+  const unsigned below = (1u << dz) - 1;
+  const int seg = (tid & 7) * 8, c = c0 + seg;
+  if (c < a.Cp) {
+#pragma unroll
+    for (int j = 0; j < TQ * 8 / THREADS; ++j) {
+      const int r = (tid >> 3) + j * (THREADS / 8);
+      if (!((info >> (18 + (r >> 4))) & 1)) continue;  // MMA skips these rows
+      const int e = s_map[pbase + r];
+      const bool hit = (e >> dz) & 1;
+      const int row = (e >> 9) + __popc(e & below);
+      cp_async16(As + r * K1_LDA + seg,
+                 hit ? gf + ((size_t)row * a.Cp + c) : gf, hit ? 16 : 0);
+    }
+  }
+  const __nv_bfloat16* wo = gw + (size_t)(BT ? K3 - 1 - o : o) * a.wr * a.ws;
+  if (BT) {  // wo [n][c]: B^T tile [TN][KC]
+    if (c < a.Cp) {
+#pragma unroll
+      for (int j = 0; j < TN * 8 / THREADS; ++j) {
+        const int nn = (tid >> 3) + j * (THREADS / 8);
+        if (n0 + nn < a.wr)
+          cp_async16(Bs + nn * K1_LDA + seg,
+                     wo + ((size_t)(n0 + nn) * a.ws + c), 16);
       }
-      __syncthreads();
-      const int mask = s_mask;
-
-      for (int j = 0; j < K; ++j) {
-        if (!((mask >> j) & 1)) continue;
-        const __nv_bfloat16* wo =
-            gw + (size_t)((dxi * K + dyi) * K + j) * C * Cout;
-        for (int c0 = 0; c0 < C; c0 += KC) {
-          // A: the tile's neighbour rows, channels [c0, c0 + KC)
-          for (int e = tid; e < TQ * (KC / 8); e += THREADS) {
-            const int r = e / (KC / 8), c = c0 + (e % (KC / 8)) * 8;
-            const int row = nb[j][r];
-            __nv_bfloat16* dst = &As[r * LDA + (e % (KC / 8)) * 8];
-            if (row >= 0 && vec_a && c + 8 <= C) {
-              *reinterpret_cast<uint4*>(dst) =
-                  *reinterpret_cast<const uint4*>(gfeat + (size_t)row * C + c);
-            } else {
+    }
+  } else {  // wo [c][n]: B tile [KC][TN]
+    constexpr int SEGS = TN / 8;
+    const int nseg = (tid % SEGS) * 8, n = n0 + nseg;
+    if (n < a.ws) {
 #pragma unroll
-              for (int u = 0; u < 8; ++u)
-                dst[u] = (row >= 0 && c + u < C) ? gfeat[(size_t)row * C + c + u]
-                                                 : zero;
-            }
-          }
-          // B: weight rows [c0, c0 + KC), columns [n0, n0 + TN)
-          for (int e = tid; e < KC * (TN / 8); e += THREADS) {
-            const int r = e / (TN / 8), c = c0 + r, n = n0 + (e % (TN / 8)) * 8;
-            __nv_bfloat16* dst = &Bs[r * LDB + (e % (TN / 8)) * 8];
-            if (c < C && vec_b && n + 8 <= Cout) {
-              *reinterpret_cast<uint4*>(dst) =
-                  *reinterpret_cast<const uint4*>(wo + (size_t)c * Cout + n);
-            } else {
-#pragma unroll
-              for (int u = 0; u < 8; ++u)
-                dst[u] = (c < C && n + u < Cout) ? wo[(size_t)c * Cout + n + u]
-                                                 : zero;
-            }
-          }
-          __syncthreads();
-#pragma unroll
-          for (int kk = 0; kk < KC; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> a;
-            wmma::load_matrix_sync(a, &As[warp * 16 * LDA + kk], LDA);
-#pragma unroll
-            for (int jn = 0; jn < TN / 16; ++jn) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major> b;
-              wmma::load_matrix_sync(b, &Bs[kk * LDB + jn * 16], LDB);
-              wmma::mma_sync(acc[jn], a, b, acc[jn]);
-            }
-          }
-          __syncthreads();
-        }
+      for (int j = 0; j < K1_KC * SEGS / THREADS; ++j) {
+        const int k = tid / SEGS + j * (THREADS / SEGS);
+        if (c0 + k < a.Cp)
+          cp_async16(Bs + k * (TN + 8) + nseg,
+                     wo + ((size_t)(c0 + k) * a.ws + n), 16);
       }
     }
   }
+}
 
+// acc += A[the warp's 16 rows, 0:KD] @ B[0:KD, the warp's TN / 2 columns].
+template <int TN, bool BT, int KD>
+__device__ __forceinline__ void k1_mma(float (&acc)[TN / 16][4],
+                                       const __nv_bfloat16* As,
+                                       const __nv_bfloat16* Bs, int wm, int wn,
+                                       int lane) {
 #pragma unroll
-  for (int jn = 0; jn < TN / 16; ++jn)
-    wmma::store_matrix_sync(&Cs[warp * 16 * LDC + jn * 16], acc[jn], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < TQ * TN; e += THREADS) {
-    const int r = e / TN, c = e % TN, q = q0 + r, n = n0 + c;
-    if (q < NQ && n < Cout) out[((size_t)g * NQ + q) * Cout + n] = Cs[r * LDC + c];
+  for (int kk = 0; kk < KD; kk += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, As + (wm * 16 + (lane & 15)) * K1_LDA + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int nj = 0; nj < TN / 32; ++nj) {
+      const int nb = wn * (TN / 2) + nj * 16;
+      uint32_t bf[4];
+      if (BT)
+        ldsm_x4(bf, Bs + (nb + (lane & 7) + ((lane >> 4) << 3)) * K1_LDA + kk +
+                        ((lane >> 3) & 1) * 8);
+      else
+        ldsm_x4_t(bf,
+                  Bs + (kk + (lane & 15)) * (TN + 8) + nb + (lane >> 4) * 8);
+      mma_bf16(acc[2 * nj], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * nj + 1], af, bf[2], bf[3]);
+    }
   }
+}
+
+// The map entries of slab dxi's planes for the block's queries: per (dy,
+// query) one search of the shifted key in the slab's window win[0, W) of
+// source keys (rows lo, lo + 1, ...), then a scan over the plane's dz
+// neighbours; and the 16-row groups with a neighbour, per offset in
+// [o_begin, o_end).
+__device__ __forceinline__ void k1_map_slab(const K1Args& a, const int* win,
+                                            int W, int lo, int dxi,
+                                            int o_begin, int o_end,
+                                            const int* s_qkey, int* s_map,
+                                            int* s_mask, int tid, int lane) {
+  constexpr int TQ = K1_TQ, THREADS = K1_THREADS;
+  const int K = a.K, h = K / 2, dx = dxi - h;
+  // a warp takes 32 queries of one dy, so its two 16-lane halves are two
+  // 16-row groups of the plane's offsets
+  for (int idx = tid; idx < TQ * K; idx += THREADS) {
+    const int q = idx % TQ, dyi = idx / TQ;
+    const int dy = dyi - h, plane = dxi * K + dyi, obase = plane * K;
+    if (obase + K <= o_begin || obase >= o_end) continue;
+    const int key = s_qkey[q];
+    const int xd = key >> a.sx, yd = (key >> a.sy) & (a.ey - 1),
+              zd = key & (a.ez - 1);
+    const bool okxy = key != INVALID_KEY && xd + dx >= 0 && xd + dx < a.ex &&
+                      yd + dy >= 0 && yd + dy < a.ey;
+    // dz neighbours j in [j0, j1) stay in the z range; the entry's row is
+    // that of the first key >= the j0 neighbour's, so a key of another
+    // column (z out of range) never counts
+    const int base = key + dx * (1 << a.sx) + dy * (1 << a.sy) - h;
+    const int j0 = max(0, h - zd), j1 = min(K, h + a.ez - zd);
+    const int first = okxy ? lower_bound(win, W, base + j0) : W;
+    int pos = first;
+    unsigned bits = 0;
+    if (okxy) {
+      for (int j = j0; j < j1; ++j) {
+        const int t = base + j;
+        while (pos < W && win[pos] < t) ++pos;
+        bits |= (unsigned)(pos < W && win[pos] == t) << j;
+      }
+    }
+    // offsets of the block's range with a neighbour, per 16-row group
+    const unsigned in = ((1u << min(K, o_end - obase)) - 1) &
+                        ~((1u << max(0, o_begin - obase)) - 1);
+    const unsigned lo16 = __reduce_or_sync(FULL, lane < 16 ? bits & in : 0u);
+    const unsigned hi16 = __reduce_or_sync(FULL, lane < 16 ? 0u : bits & in);
+    if (lane == 0)
+      for (unsigned m = lo16 | hi16; m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        atomicOr(&s_mask[obase + j],
+                 (int)(((lo16 >> j) & 1) | ((hi16 >> j) & 1) << 1) << (q >> 4));
+      }
+    s_map[plane * TQ + q] = (lo + first) << 9 | bits;
+  }
+}
+
+// 4 x 2 warps, each owning 16 query rows x TN / 2 output columns.
+template <int TN, bool BT>
+__global__ void __launch_bounds__(K1_THREADS, 2)
+    spconv_k1_gemm(const K1Args a) {
+  constexpr int TQ = K1_TQ, THREADS = K1_THREADS, NI = TN / 16;
+  using S = K1Smem<TN, BT>;
+  constexpr int NST = S::NST, IT = S::IT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sB = sA + S::A;
+  const int K = a.K, KK = K * K, K3 = KK * K, h = K / 2;
+  int* s_map = reinterpret_cast<int*>(sB + S::B);  // [K^2][TQ]
+  int* s_mask = s_map + KK * TQ;  // 16-row groups with a neighbour, per offset
+  int* s_live = s_mask + K3;
+  int* s_info = s_live + K3;
+  int* s_win = s_info + K3;
+  int* s_qkey = s_win + K1_WCAP;
+  int* s_lo = s_qkey + TQ;
+  int* s_hi = s_lo + KMAX;
+  int* s_red = s_hi + KMAX;  // kmin [0, 8), kmax [8, 16), live count at 15
+
+  const int g = blockIdx.z, q0 = blockIdx.x * TQ;
+  const int sp = blockIdx.y % a.split, cg = blockIdx.y / a.split;
+  const int o_begin = sp * a.per_split, o_end = min(K3, o_begin + a.per_split);
+  const int ntiles = (a.Cout + TN - 1) / TN;
+  const int ct_begin = cg * a.col_inner;
+  const int ct_end = min(ntiles, ct_begin + a.col_inner);
+  const int slab_begin = o_begin / KK, slab_end = (o_end + KK - 1) / KK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int* gsk = a.sk + (size_t)g * a.N;
+  const __nv_bfloat16* gf = a.fb + (size_t)g * a.N * a.Cp;
+  const __nv_bfloat16* gw = a.wb + (size_t)(g % a.Gw) * K3 * a.wr * a.ws;
+  float* out = a.out + ((size_t)sp * gridDim.z + g) * a.NQ * a.Cout;
+
+  // the tile's query keys and their range (min / max valid key)
+  if (tid < TQ) {
+    const int key = q0 + tid < a.NQ ? a.qk[(size_t)g * a.NQ + q0 + tid]
+                                    : INVALID_KEY;
+    s_qkey[tid] = key;
+    int kmin = key, kmax = key != INVALID_KEY ? key : -1;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      kmin = min(kmin, __shfl_xor_sync(FULL, kmin, o));
+      kmax = max(kmax, __shfl_xor_sync(FULL, kmax, o));
+    }
+    if (lane == 0) {
+      s_red[warp] = kmin;
+      s_red[8 + warp] = kmax;
+    }
+  }
+  for (int e = tid; e < K3; e += THREADS) s_mask[e] = 0;
+  __syncthreads();
+  int kmin = s_red[0], kmax = s_red[8];
+#pragma unroll
+  for (int w = 1; w < TQ / 32; ++w) {
+    kmin = min(kmin, s_red[w]);
+    kmax = max(kmax, s_red[8 + w]);
+  }
+  const bool any = kmax >= 0;
+
+  // the window [lo, hi) of source rows that slab dx can reach from the tile
+  if (any) {
+    for (int s = warp; s < 2 * (slab_end - slab_begin); s += THREADS / 32) {
+      const int dx = slab_begin + s / 2 - h;
+      const int t = (s & 1) ? kmax + dx * (1 << a.sx) + h * (1 << a.sy) + h + 1
+                            : kmin + dx * (1 << a.sx) - h * (1 << a.sy) - h;
+      const int pos = warp_lower_bound(gsk, a.N, t, lane);
+      if (lane == 0) ((s & 1) ? s_hi : s_lo)[s / 2] = pos;
+    }
+  }
+  __syncthreads();
+
+  // ---- the kernel map of the block's offsets, shared by its column tiles --
+  for (int dxi = slab_begin; dxi < slab_end; ++dxi) {
+    const int lo = s_lo[dxi - slab_begin], hi = s_hi[dxi - slab_begin];
+    if (!any || lo >= hi) continue;
+    const int W = hi - lo;
+    const bool staged = W <= K1_WCAP;
+    if (staged) {
+      for (int e = tid; e < W; e += THREADS) s_win[e] = gsk[lo + e];
+      __syncthreads();
+    }
+    if (staged)  // two copies: the staged one searches shared memory
+      k1_map_slab(a, s_win, W, lo, dxi, o_begin, o_end, s_qkey, s_map, s_mask,
+                  tid, lane);
+    else
+      k1_map_slab(a, gsk + lo, W, lo, dxi, o_begin, o_end, s_qkey, s_map,
+                  s_mask, tid, lane);
+    __syncthreads();  // the window is restaged for the next slab
+  }
+  if (warp == 0) {  // live offsets of the block's range, in offset order
+    int n = 0;
+    for (int o0 = o_begin; o0 < o_end; o0 += 32) {
+      const int o = o0 + lane;
+      const int m = o < o_end ? s_mask[o] : 0;
+      const unsigned b = __ballot_sync(FULL, m != 0);
+      if (m) {
+        const int at = n + __popc(b & ((1u << lane) - 1));
+        s_live[at] = o;  // and where the step finds it: plane, dz, rows
+        s_info[at] = (o / K) * TQ | (o % K) << 14 | m << 18;
+      }
+      n += __popc(b);
+    }
+    if (lane == 0) s_red[15] = n;
+  }
+  __syncthreads();
+
+  const int nkc = (a.Cp + K1_KC - 1) / K1_KC;
+  const int items = s_red[15] * nkc;
+  const int steps = (items + IT - 1) / IT;
+  float acc[NI][4];
+  for (int ct = ct_begin; ct < ct_end; ++ct) {
+    const int n0 = ct * TN;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+
+    // ---- pipelined gather-GEMM over (live offset, channel chunk) items,
+    // IT items a step (a stage holds IT A and B tiles) ----
+    constexpr int TA = S::A / (NST * IT), TB = S::B / (NST * IT);  // a tile
+    int lli = 0, lkc = 0, lit = 0;  // the next item to load: offset, chunk
+    auto load_step = [&](int st) {
+#pragma unroll
+      for (int it = 0; it < IT; ++it, ++lit)
+        if (lit < items) {
+          k1_load<TN, BT>(a, s_map, s_info[lli], s_live[lli], lkc * K1_KC,
+                          n0, gf, gw, K3, sA + (st * IT + it) * TA,
+                          sB + (st * IT + it) * TB, tid);
+          if (++lkc == nkc) lkc = 0, ++lli;
+        }
+    };
+#pragma unroll
+    for (int s = 0; s < NST - 1; ++s) {
+      if (s < steps) load_step(s);
+      cp_async_commit();
+    }
+    int lst = NST - 1, cst = 0;     // stages to load and to compute
+    int cli = 0, ckc = 0, cit = 0;  // the item to compute
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();  // step s has landed; stage (s - 1) is free
+      if (s + NST - 1 < steps) {
+        load_step(lst);
+        lst = lst + 1 == NST ? 0 : lst + 1;
+      }
+      cp_async_commit();
+#pragma unroll
+      for (int it = 0; it < IT; ++it, ++cit) {
+        if (cit >= items) break;
+        // a warp whose 16 rows have no neighbour at this offset skips it
+        if ((s_info[cli] >> (18 + wm)) & 1) {
+          const __nv_bfloat16* As = sA + (cst * IT + it) * TA;
+          const __nv_bfloat16* Bs = sB + (cst * IT + it) * TB;
+          switch (min(K1_KC, a.Cp - ckc * K1_KC)) {  // channels left
+            case 16: k1_mma<TN, BT, 16>(acc, As, Bs, wm, wn, lane); break;
+            case 32: k1_mma<TN, BT, 32>(acc, As, Bs, wm, wn, lane); break;
+            case 48: k1_mma<TN, BT, 48>(acc, As, Bs, wm, wn, lane); break;
+            default: k1_mma<TN, BT, 64>(acc, As, Bs, wm, wn, lane);
+          }
+        }
+        if (++ckc == nkc) ckc = 0, ++cli;
+      }
+      cst = cst + 1 == NST ? 0 : cst + 1;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the stages are rewritten by the next column tile
+
+    // ---- epilogue: f32 tile to out (or to this split's partial) ----
+    const bool pair = (a.Cout & 1) == 0;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+          const int q = q0 + wm * 16 + (lane >> 2) + hf * 8;
+          const int n = n0 + wn * (TN / 2) + ni * 8 + (lane & 3) * 2;
+          if (q >= a.NQ) continue;
+          float* dst = out + (size_t)q * a.Cout + n;
+          const float v0 = acc[ni][2 * hf], v1 = acc[ni][2 * hf + 1];
+          if (pair && n + 1 < a.Cout) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (n < a.Cout) dst[0] = v0;
+            if (n + 1 < a.Cout) dst[1] = v1;
+          }
+        }
+  }
+}
+
+// out[i] = sum over splits s = 0, 1, ... (in order) of part[s][i].
+__global__ void spconv_k1_reduce(const float* __restrict__ part,
+                                 float* __restrict__ out, long long n,
+                                 int split) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < split; ++p) s += part[p * n + i];
+    out[i] = s;
+  }
+}
+
+template <int TN, bool BT>
+cudaError_t k1_gemm_launch(const K1Args& a, dim3 grid, cudaStream_t st) {
+  using S = K1Smem<TN, BT>;
+  static bool opted_in = false;  // the largest shared memory, set once
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spconv_k1_gemm<TN, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::bytes(KMAX));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  spconv_k1_gemm<TN, BT><<<grid, K1_THREADS, S::bytes(a.K), st>>>(a);
+  return cudaGetLastError();
 }
 
 // K3: the weight gradient of K1.
@@ -218,6 +618,8 @@ sparse_conv_kernel(const int* __restrict__ sk, const int* __restrict__ qk,
 // Simple before fast: the binary searches are repeated per C/Cout tile and no
 // cp.async/TMA pipelining or wgmma yet.
 
+constexpr int TN = 64;               // dW columns per block
+constexpr int THREADS = 128;
 constexpr int DTC = 64;              // C rows of dW per block
 constexpr int DTQ = 64;              // queries per step
 constexpr int DLDA = DTC + 8;
@@ -420,16 +822,65 @@ extern "C" int sparse_conv_dw_launch(const void* sk, const void* qk,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sparse_conv_launch(const void* sk, const void* qk,
-                                  const void* feats, const void* w, void* out,
-                                  int G, int N, int NQ, int C, int Cout, int Gw,
-                                  int K, int sx, int sy, int ex, int ey, int ez,
-                                  void* stream) {
-  if (K > KMAX || K % 2 == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((NQ + TQ - 1) / TQ, (Cout + TN - 1) / TN, G);
-  sparse_conv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)sk, (const int*)qk, (const __nv_bfloat16*)feats,
-      (const __nv_bfloat16*)w, (float*)out, N, NQ, C, Cout, Gw, K, sx, sy, ex,
-      ey, ez);
+
+// K1: prep, gemm and (split > 1) reduce on one stream.  The plan (tn,
+// col_inner, split, per_split) comes from the wrapper's table
+// (ops/sparse_conv.py::k1_plan); rev != 0 runs the feature backward,
+// whose weights w are the forward's [Gw, K^3, Cout, C] read offset-reversed.
+extern "C" int spconv_k1_launch(
+    const void* slat, const void* svalid, const void* feats, const void* qlat,
+    const void* qvalid, const void* w, void* sk, void* qk, void* fb, void* wb,
+    void* part, void* out, int G, int N, int NQ, int C, int Cout, int Gw,
+    int K, int rev, int tn, int col_inner, int split, int per_split,
+    int margin, int sx, int sy, int ex, int ey, int ez, void* stream) {
+  const int K3 = K * K * K;
+  if (K > KMAX || K % 2 == 0 || Gw <= 0 || G % Gw != 0 ||
+      (tn != 64 && tn != 128) || col_inner < 1 ||
+      split < 1 || per_split < 1 || (long long)split * per_split < K3 ||
+      (long long)(split - 1) * per_split >= K3 || N >= (1 << 22))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || NQ == 0 || Cout == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int Cp = (C + 15) / 16 * 16, Coutp = (Cout + 7) / 8 * 8;
+  const int R = rev ? Cout : C, S = rev ? C : Cout;
+  const int Rp = rev ? Coutp : Cp, Sp = rev ? Cp : Coutp;
+  const long long nsrc = (long long)G * N, nqry = qlat ? (long long)G * NQ : 0;
+  const long long work =
+      nsrc + nqry + nsrc * Cp / 8 + (long long)Gw * K3 * Rp * Sp / 8;
+  if (work >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((work + 255) / 256 < 132 * 16 ? (work + 255) / 256
+                                                          : 132 * 16);
+  spconv_k1_prep<<<blocks, 256, 0, st>>>(
+      (const int*)slat, (const uint8_t*)svalid, (const float*)feats,
+      (const int*)qlat, (const uint8_t*)qvalid, (const float*)w, (int*)sk,
+      (int*)qk, (__nv_bfloat16*)fb, (__nv_bfloat16*)wb, (int)nsrc, (int)nqry,
+      C, Cp, Gw * K3, R, S, Rp, Sp, margin, sx, sy, ex, ey, ez);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  K1Args a;
+  a.sk = (const int*)sk;
+  a.qk = qlat ? (const int*)qk : (const int*)sk;
+  a.fb = (const __nv_bfloat16*)fb;
+  a.wb = (const __nv_bfloat16*)wb;
+  a.out = (float*)(split > 1 ? part : out);
+  a.N = N; a.NQ = NQ; a.Cp = Cp; a.Cout = Cout; a.Gw = Gw; a.K = K;
+  a.wr = Rp; a.ws = Sp;
+  a.col_inner = col_inner; a.split = split; a.per_split = per_split;
+  a.sx = sx; a.sy = sy; a.ex = ex; a.ey = ey; a.ez = ez;
+  const int ntiles = (Cout + tn - 1) / tn;
+  const dim3 grid((NQ + K1_TQ - 1) / K1_TQ,
+                  (ntiles + col_inner - 1) / col_inner * split, G);
+  if (tn == 64)
+    err = rev ? k1_gemm_launch<64, true>(a, grid, st)
+              : k1_gemm_launch<64, false>(a, grid, st);
+  else
+    err = rev ? k1_gemm_launch<128, true>(a, grid, st)
+              : k1_gemm_launch<128, false>(a, grid, st);
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const long long n = (long long)G * NQ * Cout;
+  const int rb = (int)((n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8);
+  spconv_k1_reduce<<<rb, 256, 0, st>>>((const float*)part, (float*)out, n,
+                                       split);
   return (int)cudaGetLastError();
 }

@@ -3,14 +3,18 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``.kernel_build/`` at the repository root, named by the
-hash of its source so that an edited source is rebuilt, and bound with
-``ctypes``.  Nothing is compiled at import time.
+hash of its source and of the ``csrc/`` headers it includes, so that an
+edited source or header is rebuilt, and bound with ``ctypes``.  Nothing
+is compiled at import time.  ``ptxas -v`` reports each kernel's
+registers, shared memory and spills; the report is kept beside the
+library (``ptxas_report``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -19,7 +23,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -37,12 +43,28 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(path: str, seen: list) -> list:
+    """``path`` and every ``csrc/`` header it includes (``#include "..."``),
+    recursively, each once, in include order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path) as f:
+        for m in _INCLUDE.finditer(f.read()):
+            dep = os.path.join(os.path.dirname(path), m.group(1))
+            if os.path.exists(dep):
+                _sources(os.path.normpath(dep), seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library's path, named by the hash of the source, of every header
+    of ``csrc/`` it includes and of the nvcc flags."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in _sources(os.path.join(_CSRC, name + ".cu"), []):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
@@ -58,8 +80,34 @@ def build(name: str) -> str:
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+    with open(out[:-3] + ".ptxas.txt", "w") as f:
+        f.write(res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(name: str) -> list:
+    """Per kernel of csrc/<name>.cu as built: (mangled kernel name,
+    registers, static shared memory bytes, spill stores + loads bytes),
+    from nvcc's ptxas -v (dynamic shared memory is set at launch)."""
+    path = library_path(name)[:-3] + ".ptxas.txt"
+    rows, kernel = [], None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                kernel, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and kernel:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                          line)
+            if m and kernel:
+                rows.append((kernel, int(m.group(1)), int(m.group(2) or 0),
+                             spill))
+                kernel = None
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

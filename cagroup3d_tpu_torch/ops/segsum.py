@@ -6,8 +6,10 @@ the f32 sums of the bf16 feature rows and the row count of each run of
 equal keys, for the first ``cap`` runs in key order; rows with
 ``INVALID_KEY`` (sorted last) are ignored.
 
-The CUDA kernel is ``csrc/segsum.cu``; ``segment_sums_plain`` is its plain
-PyTorch version, used for CPU tensors and as the reference on the card.
+The CUDA kernel is ``csrc/segsum.cu`` (a head-count pass and a
+per-run reduce pass over row tiles; no float atomics, so two calls give
+the same bits); ``segment_sums_plain`` is its plain PyTorch version, used
+for CPU tensors and as the reference on the card.
 """
 from __future__ import annotations
 
@@ -44,6 +46,13 @@ def segment_sums_plain(sk: torch.Tensor, feats_s: torch.Tensor, cap: int):
 _MAX_F = 256
 
 
+def k2_plan(G: int, P: int) -> dict:
+    """K2's launch shape: rows per block and blocks per pass (from the
+    built kernel)."""
+    tile = build.load("segsum").segsum_tile_rows()
+    return {"tile_rows": tile, "blocks_per_pass": G * -(-P // tile)}
+
+
 def segment_sums(sk: torch.Tensor, feats_s: torch.Tensor, cap: int):
     """Per-group segment sums/counts over key-sorted rows (see module
     docstring).  CPU tensors take the plain version; CUDA tensors launch
@@ -62,18 +71,23 @@ def segment_sums(sk: torch.Tensor, feats_s: torch.Tensor, cap: int):
                          f"{tuple(feats_s.shape)}")
     if not (sk.is_contiguous() and feats_s.is_contiguous()):
         raise ValueError("segment_sums needs contiguous inputs")
-    if not 0 < F <= _MAX_F or cap <= 0:
+    if not 0 < F <= _MAX_F or cap <= 0 or P == 0:
         raise ValueError(f"unsupported F={F} or cap={cap}")
     lib = build.load("segsum")
+    scratch = lib.segsum_scratch
+    scratch.argtypes = [ctypes.c_int] * 2
+    scratch.restype = ctypes.c_longlong
     fn = lib.segsum_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    sums = torch.zeros(G, cap, F, dtype=torch.float32, device=sk.device)
-    counts = torch.zeros(G, cap, dtype=torch.int32, device=sk.device)
+    # every run < cap is written by the kernel, zeros included
+    sums = torch.empty(G, cap, F, dtype=torch.float32, device=sk.device)
+    counts = torch.empty(G, cap, dtype=torch.int32, device=sk.device)
+    heads = torch.empty(scratch(G, P), dtype=torch.int32, device=sk.device)
     stream = torch.cuda.current_stream(sk.device).cuda_stream
     err = fn(sk.data_ptr(), feats_s.data_ptr(), sums.data_ptr(),
-             counts.data_ptr(), G, P, F, cap, stream)
+             counts.data_ptr(), heads.data_ptr(), G, P, F, cap, stream)
     build.check(err, "segsum")
     segment_sums.launches += 1
     return sums, counts

@@ -30,19 +30,24 @@ head's segment-sum maps in that order (``sources_sorted`` checks it), and
 so does every query table of the conv-at-coords form, which is the source
 of its feature gradient.  Queries may otherwise come in any order.
 
-The CUDA kernels are in ``csrc/sparse_conv.cu``; ``sparse_conv_plain`` and
-``sparse_conv_dw_plain`` are their plain PyTorch versions, used for CPU
-tensors and as the reference on the card.
+The CUDA kernels are in ``csrc/sparse_conv.cu`` (K1: an operand-prep
+pass, the map-and-gather-GEMM pass with the plan of ``k1_plan``, and a
+reduce pass over offset splits; no float atomics, so two calls give the
+same bits); ``sparse_conv_plain`` and ``sparse_conv_dw_plain`` are their
+plain PyTorch versions, used for CPU tensors and as the reference on the
+card.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.hashing import INVALID_KEY, key_extents, key_shifts, pack_coords
+from ..core.hashing import (_MARGIN as MARGIN, INVALID_KEY, key_extents,
+                            key_shifts, pack_coords)
 from ..core.kernel_maps import kernel_offsets
 from ..core.sparse import bf16_round, zero_invalid
 from . import build
@@ -150,43 +155,124 @@ def _keys(src_lat, src_valid, qry_lat, qry_valid, K, feats, n_out):
     return sk, qk
 
 
-def _launch_k1(src_lat, src_valid, src_feats, w, K, qry_lat, qry_valid):
-    """K1 on CUDA tensors (see module docstring); f32[G, NQ, Cout]."""
-    G, N, C = src_feats.shape
-    Gw, K3, Cw, Cout = w.shape
-    if K3 != K ** 3 or Cw != C:
-        raise ValueError(f"sparse_conv: w {tuple(w.shape)} does not fit K={K}"
-                         f" and feats {tuple(src_feats.shape)}")
-    sk, qk = _keys(src_lat, src_valid, qry_lat, qry_valid, K, src_feats, Gw)
-    NQ = qk.shape[1]
-    dev = src_feats.device
-    feats = zero_invalid(src_feats, src_valid).to(torch.bfloat16).contiguous()
-    wb = w.to(torch.bfloat16).contiguous()
-    _check(feats, "feats", torch.bfloat16, (G, N, C), dev)
-    _check(wb, "weights", torch.bfloat16, (Gw, K3, C, Cout), dev)
-    out = torch.empty(G, NQ, Cout, dtype=torch.float32, device=dev)
-    fn = build.load("sparse_conv").sparse_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + \
+# K1's plan table.  A block owns K1_TQ queries of one group, ``col_inner``
+# column tiles of ``tn`` columns that it walks with one kernel map, and a
+# range of ``per_split`` kernel offsets; the ``split`` offset ranges of a
+# query tile are summed in order by a reduce pass.
+K1_TQ, K1_SMS = 64, 132          # 132 SMs: H100 SXM
+
+
+class K1Plan(NamedTuple):
+    tn: int
+    col_inner: int
+    split: int
+    per_split: int
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(G: int, NQ: int, C: int, Cout: int, K: int) -> K1Plan:
+    """K1's tile shape and split for one launch, filling the card first:
+    128-column tiles from Cout 256 up, 64 below; a block walks every column
+    tile of its query tile with one map when the query tiles alone fill two
+    waves of the card's SMs, else each column tile is a block of its own (a
+    map costs a few µs a block, an idle SM more); the offsets split over
+    blocks when the grid would still be under two waves.  C does not change
+    the plan (the kernel steps over 64-channel chunks)."""
+    K3 = K ** 3
+    tn = 128 if Cout >= 256 else 64
+    ntiles = -(-Cout // tn)
+    qblocks = G * -(-NQ // K1_TQ)
+    col_inner = ntiles if qblocks >= 2 * K1_SMS else 1
+    blocks = qblocks * -(-ntiles // col_inner)
+    split = 1
+    if 0 < blocks < 2 * K1_SMS:
+        split = min(K3, -(-2 * K1_SMS // blocks))
+    per_split = -(-K3 // split)
+    return K1Plan(tn, col_inner, -(-K3 // per_split), per_split)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_launcher():
+    fn = build.load("sparse_conv").spconv_k1_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 18 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _k1_scratch(G, N, NQ, C, Cout, Gw, K, has_query, split):
+    """Byte offsets (256-aligned) of K1's scratch -- source keys, query
+    keys, bf16 rows [G, N, Cp], bf16 weights [Gw, K^3, Cp x Coutp] and the
+    f32 split partials -- and the total."""
+    Cp, Coutp = -(-C // 16) * 16, -(-Cout // 8) * 8
+    sizes = (4 * G * N, 4 * G * NQ if has_query else 0, 2 * G * N * Cp,
+             2 * Gw * K ** 3 * Cp * Coutp,
+             4 * split * G * NQ * Cout if split > 1 else 0)
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    return offsets, total
+
+
+def _launch_k1(src_lat, src_valid, src_feats, w, K, qry_lat, qry_valid,
+               rev=False):
+    """K1 on CUDA tensors (see module docstring); f32[G, NQ, Cout].  With
+    ``rev`` it runs with ``w_rev_t(w)``, read in place by the kernel."""
+    dev = src_feats.device
+    if dev.type != "cuda":
+        raise ValueError(f"sparse_conv: no kernel for device {dev}")
+    G, N, C = src_feats.shape
+    Gw, K3, R, S = w.shape
+    Cout, Cw = (R, S) if rev else (S, R)
+    NQ = N if qry_lat is None else qry_lat.shape[1]
+    if K3 != K ** 3 or Cw != C or K % 2 == 0 or K > 9 or G % Gw != 0 or \
+            N >= 1 << 22 or \
+            tuple(src_lat.shape) != (G, N, 3) or \
+            tuple(src_valid.shape) != (G, N) or (qry_lat is not None and (
+                tuple(qry_lat.shape) != (G, NQ, 3) or
+                tuple(qry_valid.shape) != (G, NQ))):
+        raise ValueError(f"sparse_conv: w {tuple(w.shape)} does not fit K={K}"
+                         f", feats {tuple(src_feats.shape)} and the tables")
+    tensors = [src_lat.to(torch.int32).contiguous(),
+               src_valid.to(torch.bool).contiguous(),
+               src_feats.float().contiguous()]
+    if qry_lat is not None:
+        tensors += [qry_lat.to(torch.int32).contiguous(),
+                    qry_valid.to(torch.bool).contiguous()]
+    tensors.append(w.float().contiguous())
+    if any(t.device != dev for t in tensors):
+        raise ValueError("sparse_conv: every input must be on one device")
+    ptrs = [t.data_ptr() for t in tensors]
+    if qry_lat is None:
+        ptrs[3:3] = [None, None]
+    plan = k1_plan(G, NQ, C, Cout, K)
+    offsets, total = _k1_scratch(G, N, NQ, C, Cout, Gw, K,
+                                 qry_lat is not None, plan.split)
+    scratch = torch.empty(total, dtype=torch.uint8, device=dev)
+    out = torch.empty(G, NQ, Cout, dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     (ex, ey, ez), (sx, sy) = key_extents(), key_shifts()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(sk.data_ptr(), qk.data_ptr(), feats.data_ptr(), wb.data_ptr(),
-             out.data_ptr(), G, N, NQ, C, Cout, Gw, K, sx, sy, ex, ey, ez,
-             stream)
+    err = _k1_launcher()(
+        *ptrs, *(base + o for o in offsets), out.data_ptr(), G, N, NQ, C,
+        Cout, Gw, K, int(rev), *plan, MARGIN, sx, sy, ex, ey, ez,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "sparse_conv")
     with _count_lock:
         sparse_conv.launches += 1
     return out
 
 
-def _conv(src_lat, src_valid, src_feats, w, K, qry_lat=None, qry_valid=None):
-    """K1 forward: the plain version for CPU tensors, the kernel on CUDA."""
+def _conv(src_lat, src_valid, src_feats, w, K, qry_lat=None, qry_valid=None,
+          rev=False):
+    """K1 forward (``rev``: with ``w_rev_t(w)``): the plain version for CPU
+    tensors, the kernel on CUDA."""
     if src_feats.device.type == "cpu":
-        return sparse_conv_plain(src_lat, src_valid, src_feats, w, K,
-                                 qry_lat, qry_valid)
+        return sparse_conv_plain(src_lat, src_valid, src_feats,
+                                 w_rev_t(w) if rev else w, K, qry_lat,
+                                 qry_valid)
     return _launch_k1(src_lat, src_valid, src_feats, w, K, qry_lat,
-                      qry_valid)
+                      qry_valid, rev)
 
 
 def sparse_conv_dfeats(src_lat, src_valid, w, kernel_size: int, gout,
@@ -195,11 +281,10 @@ def sparse_conv_dfeats(src_lat, src_valid, w, kernel_size: int, gout,
     cotangent gout [G, NQ, Cout]: K1 with ``w_rev_t(w)``; for the
     conv-at-coords form the query table is the source and the source
     lattice the queries.  Returns f32[G, N, C]."""
-    wt = w_rev_t(w)
     if qry_lat is None:
-        return _conv(src_lat, src_valid, gout, wt, kernel_size)
-    return _conv(qry_lat, qry_valid, gout, wt, kernel_size, src_lat,
-                 src_valid)
+        return _conv(src_lat, src_valid, gout, w, kernel_size, rev=True)
+    return _conv(qry_lat, qry_valid, gout, w, kernel_size, src_lat,
+                 src_valid, rev=True)
 
 
 def sparse_conv_dfeats_plain(src_lat, src_valid, w, kernel_size: int, gout,
@@ -302,6 +387,10 @@ def sparse_conv(src_lat: torch.Tensor, src_valid: torch.Tensor,
     (``sparse_conv.launches`` counts K1 launches, the feature backward's
     included; ``sparse_conv_dw.launches`` counts K3's).
     """
+    if not (torch.is_grad_enabled() and
+            (src_feats.requires_grad or w.requires_grad)):
+        return _conv(src_lat, src_valid, src_feats, w, kernel_size, qry_lat,
+                     qry_valid)        # nothing to differentiate
     return _SparseConvFn.apply(src_lat, src_valid, src_feats, w,
                                kernel_size, qry_lat, qry_valid)
 

@@ -19,7 +19,8 @@ open, class prior lifted), answers three warm-up 100k-point scenes
    ``nms_head`` and ``nms_roi`` are those two calls alone.
 3. device  -- ``torch.profiler`` over three scenes, CUDA kernel rows only:
    kernel ms and kernel launches per scene, K1 and K2 kernel ms per
-   scene, the ten largest kernels, and the busy share = kernel ms per
+   scene (every pass of each), the ten largest kernels, and the busy
+   share = kernel ms per
    scene / median wall ms of phase 1 (one stream, so kernels do not
    overlap).  Also the peak device memory of the run.
 4. train   -- the training step of ``chip_smoke.py`` phase 9 (B = 4
@@ -43,6 +44,11 @@ import time
 from collections import defaultdict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# kernel-name parts of each kernel's passes (csrc/*.cu): K1 prep, map +
+# gather-GEMM and split reduce; K2 head count and run reduce; K3 and its
+# reduce
+K1_NAME, K2_NAME, K3_NAME = "spconv_k1_", "segsum_k2_", \
+    "sparse_conv_dw"
 
 
 def emit(obj, log):
@@ -163,8 +169,8 @@ def main():
             k[1] += 1
     total_ms = sum(v[0] for v in kernels.values()) / n_prof
     n_launch = sum(v[1] for v in kernels.values()) / n_prof
-    k1 = sum(v[0] for n, v in kernels.items() if "sparse_conv_kernel" in n)
-    k2 = sum(v[0] for n, v in kernels.items() if "segsum_kernel" in n)
+    k1 = sum(v[0] for n, v in kernels.items() if K1_NAME in n)
+    k2 = sum(v[0] for n, v in kernels.items() if K2_NAME in n)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     emit({"phase": "device", **card, "scenes": n_prof,
           "kernel_ms_per_scene": total_ms if kernels else "not measured",
@@ -235,9 +241,9 @@ def main():
           "kernel_ms_per_step": total_ms if kernels else "not measured",
           "kernel_launches_per_step": sum(v[1] for v in kernels.values()),
           "k1_ms_per_step": sum(v[0] for n, v in kernels.items()
-                                if "sparse_conv_kernel" in n),
+                                if K1_NAME in n),
           "k3_ms_per_step": sum(v[0] for n, v in kernels.items()
-                                if "sparse_conv_dw" in n),
+                                if K3_NAME in n),
           "busy_share": (total_ms / step_med if kernels
                          else "not measured"),
           "top_kernels": [{"name": n[:80], "ms_per_step": v[0],

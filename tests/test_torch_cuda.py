@@ -8,14 +8,14 @@ Without a CUDA device every test skips.  Bars: K1 relative error < 2e-2
 and per-row error < 1e-3 (``_row``) with invalid rows exactly zero; K2
 counts exact, sums within the same two bars; K3 and K1's feature backward
 within both bars of their plain versions (both sides round to bf16 and
-sum in f32), K3 bit-identical across two runs, and the autograd
+sum in f32), K1, K2 and K3 bit-identical across two calls, and the autograd
 Function's gradients within 2e-2 of plain autograd through
 ``sparse_conv_plain`` (which does not round the cotangent to bf16).
 """
 import pytest
 import torch
 
-from cagroup3d_tpu_torch.core.hashing import pack_coords
+from cagroup3d_tpu_torch.core.hashing import INVALID_KEY, pack_coords
 from cagroup3d_tpu_torch.core.voxelize import unique_voxels
 from cagroup3d_tpu_torch.ops.segsum import segment_sums, segment_sums_plain
 from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
@@ -49,11 +49,15 @@ def _row(a, b):
     return float(((a - b).abs().amax(-1) / den).max())
 
 
-def _tables(seed, G, P, C, cap, side, dev):
+def _tables(seed, G, P, C, cap, side, dev, wrap=False):
     g = torch.Generator().manual_seed(seed)
     coords, valid, feats = [], [], []
     for _ in range(G):
         lat = torch.randint(0, side, (P, 3), generator=g, dtype=torch.int32)
+        if wrap:   # z at -8 (packed 0) and up to 1015 (packed 1023)
+            z = lat[:, 2]
+            lat[:, 2] = torch.where(z < side // 2, z - 8,
+                                    1015 - (z - side // 2))
         f = torch.randn(P, C, generator=g)
         st, _ = unique_voxels(lat, f, torch.rand(P, generator=g) < 0.8, cap)
         coords.append(st.coords)
@@ -63,33 +67,96 @@ def _tables(seed, G, P, C, cap, side, dev):
             torch.stack(feats).to(dev))
 
 
-@pytest.mark.parametrize("k,G,Gw,C,Cout,query", [
-    (3, 1, 1, 3, 64, False), (3, 1, 1, 64, 128, True), (5, 3, 3, 64, 64, False),
-    (9, 3, 1, 64, 64, False), (5, 1, 1, 64, 128, True), (3, 1, 1, 512, 512, False)])
-def test_sparse_conv_kernel(dev, k, G, Gw, C, Cout, query):
-    lat, valid, feats = _tables(k, G, 900, C, 512, 12, dev)
+# K1 cases over the plans that ``k1_plan`` can choose: C and Cout over
+# {3, 16, 64, 128, 256, 512}, K over {3, 5, 9}, (G, Gw) (1, 1), (3, 3),
+# (3, 1) and (18, 18), conv at coords; small tables split the offsets,
+# the large ones (cap >= 17000 or 18 x 1024 queries) do not and walk
+# their column tiles (64 or 128 wide) with one map; NQ not a multiple of
+# 64; the feature backward's transposed weights are the dfeats cases
+# below; "empty": every query invalid; "far": queries above every source
+# (the tiles' key windows hold
+# sources, but every plane of every tile is empty); "wrap": lattice z at
+# both ends of the key's z field, so a neighbour below z 0 would alias the
+# top voxel of the previous y column.
+K1_CASES = [
+    (3, 1, 1, 3, 64, False, 512, ""), (3, 1, 1, 64, 128, True, 512, ""),
+    (5, 3, 3, 64, 64, False, 512, ""), (9, 3, 1, 64, 64, False, 512, ""),
+    (5, 1, 1, 64, 128, True, 512, ""), (3, 1, 1, 512, 512, False, 512, ""),
+    (3, 1, 1, 16, 16, False, 512, ""), (3, 1, 1, 128, 256, True, 512, ""),
+    (3, 1, 1, 256, 3, False, 512, ""), (5, 1, 1, 16, 512, False, 300, ""),
+    (9, 2, 2, 64, 128, False, 512, ""), (9, 18, 18, 64, 64, False, 1024, ""),
+    (5, 18, 18, 64, 64, False, 300, ""), (3, 1, 1, 64, 64, False, 17000, ""),
+    (3, 1, 1, 64, 256, False, 17000, ""),
+    (3, 1, 1, 3, 64, False, 17000, ""), (5, 1, 1, 64, 128, True, 17000, ""),
+    (3, 1, 1, 64, 64, True, 512, "empty"), (5, 1, 1, 64, 64, True, 512, "far"),
+    (3, 1, 1, 64, 64, False, 512, "wrap"),
+    (5, 1, 1, 16, 64, False, 512, "wrap")]
+
+
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query,cap,kind", K1_CASES)
+def test_sparse_conv_kernel(dev, k, G, Gw, C, Cout, query, cap, kind):
+    P, side = (900, 12) if cap <= 1024 else (30000, 40)
+    lat, valid, feats = _tables(k, G, P, C, cap, side, dev, kind == "wrap")
     w = torch.randn(Gw, k ** 3, C, Cout, device=dev) * 0.1
-    q = _tables(k + 1, G, 700, 1, 384, 12, dev)[:2] if query else (None, None)
+    q = (None, None)
+    if query:
+        q = _tables(k + 1, G, 700 if cap <= 1024 else P, 1,
+                    384 if cap <= 1024 else cap, side, dev)[:2]
+        if kind == "empty":
+            q = (q[0], torch.zeros_like(q[1]))
+        elif kind == "far":                 # z beyond every source's reach
+            q = (q[0] + torch.tensor([0, 0, side + 3], device=dev), q[1])
     before = sparse_conv.launches
     got = sparse_conv(lat, valid, feats, w, k, *q)
     torch.cuda.synchronize()
     assert sparse_conv.launches == before + 1
     ref = sparse_conv_plain(lat, valid, feats, w, k, *q)
-    assert _rel(got, ref) < 2e-2
-    assert _row(got, ref) < 1e-3
     rows = q[1] if query else valid
     assert bool((got[~rows] == 0).all())
+    if kind in ("empty", "far"):
+        assert bool((got == 0).all()) and bool((ref == 0).all())
+    else:
+        assert _rel(got, ref) < 2e-2
+        assert _row(got, ref) < 1e-3
+    again = sparse_conv(lat, valid, feats, w, k, *q)
+    assert torch.equal(got, again)          # no float atomics
 
 
-@pytest.mark.parametrize("side,cap", [(12, 64), (5, 256), (40, 4096)])
-def test_segment_sums_kernel(dev, side, cap):
-    g = torch.Generator().manual_seed(side)
-    G, P, F = 4, 8192, 64
-    lat = torch.randint(0, side, (G, P, 3), generator=g, dtype=torch.int32)
-    keys = pack_coords(lat, torch.rand(G, P, generator=g) < 0.8)
-    sk, _ = torch.sort(keys, dim=1, stable=True)
+def _segsum_case(case, dev):
+    """(sorted keys, bf16 rows, cap) of a K2 case.  "rand": random
+    lattices over ``side``; "runs": explicit run lengths, runs spanning
+    two and three 1024-row tiles, P not a multiple of the tile, and an
+    all-invalid group."""
+    kind, side, cap, F = case
+    g = torch.Generator().manual_seed(side + cap + F)
+    if kind == "rand":
+        G, P = 4, 8192
+        lat = torch.randint(0, side, (G, P, 3), generator=g, dtype=torch.int32)
+        keys = pack_coords(lat, torch.rand(G, P, generator=g) < 0.8)
+        sk, _ = torch.sort(keys, dim=1, stable=True)
+    else:
+        P, lengths = 9000, [1500, 2600, 3, 3000, 1]   # 5 runs, then invalid
+        sk = torch.full((3, P), INVALID_KEY, dtype=torch.int32)
+        run = torch.repeat_interleave(torch.arange(5, dtype=torch.int32) * 7,
+                                      torch.tensor(lengths))
+        sk[0, :run.numel()] = run
+        sk[2, :run.numel()] = run + 1
+        G = 3                               # group 1: every row invalid
     fs = torch.randn(G, P, F, generator=g).to(torch.bfloat16)
-    args = (sk.to(dev).contiguous(), fs.to(dev).contiguous(), cap)
+    return sk.to(dev).contiguous(), fs.to(dev).contiguous(), cap
+
+
+# (kind, side, cap, F): caps below, equal to and above the number of
+# runs; F 16, 64, 256 (vector loads) and 20 (scalar loads)
+K2_CASES = [("rand", 12, 64, 64), ("rand", 5, 256, 64), ("rand", 40, 4096, 64),
+            ("rand", 12, 64, 16), ("rand", 40, 4096, 256),
+            ("rand", 12, 300, 20), ("runs", 0, 3, 64), ("runs", 0, 5, 64),
+            ("runs", 0, 8, 256), ("runs", 0, 5, 20)]
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_segment_sums_kernel(dev, case):
+    args = _segsum_case(case, dev)
     before = segment_sums.launches
     sums, counts = segment_sums(*args)
     torch.cuda.synchronize()
@@ -98,6 +165,8 @@ def test_segment_sums_kernel(dev, side, cap):
     assert bool((counts == rcounts).all())
     assert _rel(sums, rsums) < 2e-2
     assert _row(sums, rsums) < 1e-3
+    again = segment_sums(*args)
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
 
 
 # the main-path forms of K3 and K1's backward, at small sizes:
