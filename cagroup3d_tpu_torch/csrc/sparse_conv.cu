@@ -56,10 +56,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -370,42 +367,22 @@ __device__ __forceinline__ void k1_map_slab(const K1Args& a, const int* win,
   }
 }
 
-// 4 x 2 warps, each owning 16 query rows x TN / 2 output columns.
-template <int TN, bool BT>
-__global__ void __launch_bounds__(K1_THREADS, 2)
-    spconv_k1_gemm(const K1Args a) {
-  constexpr int TQ = K1_TQ, THREADS = K1_THREADS, NI = TN / 16;
-  using S = K1Smem<TN, BT>;
-  constexpr int NST = S::NST, IT = S::IT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + S::A;
+// The kernel map of offsets [o_begin, o_end) for the TQ queries from q0 of
+// group g, built by the whole block: the tile's query keys (s_qkey) and
+// their range (min / max valid key), per dx slab the window [lo, hi) of
+// source rows the tile can reach, staged in shared memory when it fits,
+// then the slab's entries (k1_map_slab).  s_mask is zeroed first; the
+// planes of a slab without a window keep what s_map held.
+__device__ __forceinline__ void k1_block_map(const K1Args& a, int g, int q0,
+                                             int o_begin, int o_end,
+                                             int* s_map, int* s_mask,
+                                             int* s_win, int* s_qkey,
+                                             int* s_lo, int* s_hi, int* s_red,
+                                             int tid, int lane, int warp) {
+  constexpr int TQ = K1_TQ, THREADS = K1_THREADS;
   const int K = a.K, KK = K * K, K3 = KK * K, h = K / 2;
-  int* s_map = reinterpret_cast<int*>(sB + S::B);  // [K^2][TQ]
-  int* s_mask = s_map + KK * TQ;  // 16-row groups with a neighbour, per offset
-  int* s_live = s_mask + K3;
-  int* s_info = s_live + K3;
-  int* s_win = s_info + K3;
-  int* s_qkey = s_win + K1_WCAP;
-  int* s_lo = s_qkey + TQ;
-  int* s_hi = s_lo + KMAX;
-  int* s_red = s_hi + KMAX;  // kmin [0, 8), kmax [8, 16), live count at 15
-
-  const int g = blockIdx.z, q0 = blockIdx.x * TQ;
-  const int sp = blockIdx.y % a.split, cg = blockIdx.y / a.split;
-  const int o_begin = sp * a.per_split, o_end = min(K3, o_begin + a.per_split);
-  const int ntiles = (a.Cout + TN - 1) / TN;
-  const int ct_begin = cg * a.col_inner;
-  const int ct_end = min(ntiles, ct_begin + a.col_inner);
   const int slab_begin = o_begin / KK, slab_end = (o_end + KK - 1) / KK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
   const int* gsk = a.sk + (size_t)g * a.N;
-  const __nv_bfloat16* gf = a.fb + (size_t)g * a.N * a.Cp;
-  const __nv_bfloat16* gw = a.wb + (size_t)(g % a.Gw) * K3 * a.wr * a.ws;
-  float* out = a.out + ((size_t)sp * gridDim.z + g) * a.NQ * a.Cout;
-
-  // the tile's query keys and their range (min / max valid key)
   if (tid < TQ) {
     const int key = q0 + tid < a.NQ ? a.qk[(size_t)g * a.NQ + q0 + tid]
                                     : INVALID_KEY;
@@ -443,7 +420,6 @@ __global__ void __launch_bounds__(K1_THREADS, 2)
   }
   __syncthreads();
 
-  // ---- the kernel map of the block's offsets, shared by its column tiles --
   for (int dxi = slab_begin; dxi < slab_end; ++dxi) {
     const int lo = s_lo[dxi - slab_begin], hi = s_hi[dxi - slab_begin];
     if (!any || lo >= hi) continue;
@@ -461,6 +437,44 @@ __global__ void __launch_bounds__(K1_THREADS, 2)
                   s_mask, tid, lane);
     __syncthreads();  // the window is restaged for the next slab
   }
+}
+
+// 4 x 2 warps, each owning 16 query rows x TN / 2 output columns.
+template <int TN, bool BT>
+__global__ void __launch_bounds__(K1_THREADS, 2)
+    spconv_k1_gemm(const K1Args a) {
+  constexpr int TQ = K1_TQ, NI = TN / 16;
+  using S = K1Smem<TN, BT>;
+  constexpr int NST = S::NST, IT = S::IT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sB = sA + S::A;
+  const int K = a.K, KK = K * K, K3 = KK * K;
+  int* s_map = reinterpret_cast<int*>(sB + S::B);  // [K^2][TQ]
+  int* s_mask = s_map + KK * TQ;  // 16-row groups with a neighbour, per offset
+  int* s_live = s_mask + K3;
+  int* s_info = s_live + K3;
+  int* s_win = s_info + K3;
+  int* s_qkey = s_win + K1_WCAP;
+  int* s_lo = s_qkey + TQ;
+  int* s_hi = s_lo + KMAX;
+  int* s_red = s_hi + KMAX;  // kmin [0, 8), kmax [8, 16), live count at 15
+
+  const int g = blockIdx.z, q0 = blockIdx.x * TQ;
+  const int sp = blockIdx.y % a.split, cg = blockIdx.y / a.split;
+  const int o_begin = sp * a.per_split, o_end = min(K3, o_begin + a.per_split);
+  const int ntiles = (a.Cout + TN - 1) / TN;
+  const int ct_begin = cg * a.col_inner;
+  const int ct_end = min(ntiles, ct_begin + a.col_inner);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const __nv_bfloat16* gf = a.fb + (size_t)g * a.N * a.Cp;
+  const __nv_bfloat16* gw = a.wb + (size_t)(g % a.Gw) * K3 * a.wr * a.ws;
+  float* out = a.out + ((size_t)sp * gridDim.z + g) * a.NQ * a.Cout;
+
+  // ---- the kernel map of the block's offsets, shared by its column tiles --
+  k1_block_map(a, g, q0, o_begin, o_end, s_map, s_mask, s_win, s_qkey, s_lo,
+               s_hi, s_red, tid, lane, warp);
   if (warp == 0) {  // live offsets of the block's range, in offset order
     int n = 0;
     for (int o0 = o_begin; o0 < o_end; o0 += 32) {
@@ -587,241 +601,438 @@ cudaError_t k1_gemm_launch(const K1Args& a, dim3 grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// K3: the weight gradient of K1.
+// ---------------------------------------------------------------- K3 -----
 //
-// Replaces the TPU kernel cagroup3d_tpu/ops/pallas_conv.py::_dw_kernel
-// (launched by _pallas_dw from the custom VJPs of subm_conv_classes_mxu and
-// conv_at_coords_mxu).  It computes, per weight group gw and offset o,
+// K3: the weight gradient of K1.  Replaces the TPU kernel
+// cagroup3d_tpu/ops/pallas_conv.py::_dw_kernel (launched by _pallas_dw from
+// the custom VJPs of subm_conv_classes_mxu and conv_at_coords_mxu).  Per
+// weight group gw and offset o,
 //   dW[gw, o] = sum_{g mod Gw == gw} sum_q feats[g, row(key(q) + o)]^T gout[g, q]
-// over the same key-sorted source tables as K1 (invalid queries and missing
-// neighbours add nothing), bf16 in, f32 out.
+// over K1's key-sorted source tables (invalid queries and missing neighbours
+// add nothing), bf16 operands, f32 sums, f32 out [Gw, K^3, C, Cout].
 //
-// What bounds it on Hopper: at the head's per-class k9 form every one of the
-// 18 x 729 offsets owns a 64 x 64 f32 tile of dW, so writing dW (215 MB) is a
-// floor; at the backbone's 256/512-channel convs the FLOPs; in between the
-// row gathers, as in K1.
+// What bounds it on Hopper, per main-path form: the head's per-class k9 form
+// (G 18, 64 -> 64) by its hit FLOPs (113 GFLOP, 0.11 ms at the bf16 peak)
+// with the 215 MB of dW it writes close behind; every other form by bytes
+// (the tables read once and dW written once: tens of µs).  What stood
+// between the first design and those bounds was repeated work: every
+// (C tile, Cout tile) block searched the whole source table once per
+// (query, offset), and multiplied 64-query steps that were mostly empty.
 // Design:
-//   * a block owns one (group, offset, 64-row C tile, 64-column Cout tile)
-//     and a chunk of queries; the chunk count is chosen on the host so that
-//     the grid fills the card (small tables with few offsets, such as the
-//     backbone's 65536-row k3 convs, are split into many chunks);
-//   * kernel map in the block: per query one binary search of key + offset in
-//     the sorted source keys, with the x/y/z digit range checks of K1; chunks
-//     of 64 queries with no hit are skipped (most of them at k9);
-//   * per 64-query step the hit rows of feats and the matching gout rows are
-//     gathered into shared memory and four warps accumulate feats^T gout on
-//     the tensor cores (WMMA, bf16 in, f32 accumulate in registers);
-//   * with one chunk and one group per weight group the block writes dW
-//     directly; otherwise it writes its partial tile and a second kernel sums
-//     the partials in a fixed order (groups ascending, then chunks), with no
-//     float atomics, so two runs give the same bits.
-// Simple before fast: the binary searches are repeated per C/Cout tile and no
-// cp.async/TMA pipelining or wgmma yet.
+//   * k3_prep, one launch: the packed keys of both tables, bf16 feats (invalid
+//     rows zeroed, channels padded to a multiple of 16, so C = 3 takes the
+//     tensor-core path) and the bf16 cotangent (invalid query rows zeroed,
+//     columns padded to a multiple of 8);
+//   * the map, built once per call and shared by every dW tile: k3_map builds
+//     K1's in-block map for each 64-query tile (k1_block_map: one search per
+//     (dx, dy) plane in a staged window of sorted source keys, a dz scan) and
+//     writes its entries and its hit count per offset; k3_scan turns the
+//     counts into each tile's place in the (group, offset) pair list; k3_fill
+//     writes the pairs (source row, query), ascending in query.  The lists
+//     hold misses nowhere, so every pipeline stage below is dense.  Scratch is
+//     sized for the worst case, G K^3 NQ pairs of 8 bytes (430 MB at the k9
+//     form), with no host sync;
+//   * k3_gemm: a block (one warpgroup) owns (group, offset, 64-row C tile,
+//     64- or 128-column Cout tile, pair split).  A ring of three cp.async
+//     stages gathers 64 pairs' feats rows and gout rows into 128-byte swizzled
+//     tiles while the tensor cores multiply the previous stage: wgmma
+//     m64nNk16 with both operands read transposed (MN-major) from shared
+//     memory, f32 accumulators in registers (mma.sync m16n8k16 on the same
+//     tiles was as fast or slower at every main-path form).  k3_plan
+//     (ops/sparse_conv.py) picks the tile width and the splits so that the
+//     grid fills two waves of the card's SMs;
+//   * with one split and one group per weight group the block writes dW
+//     directly; otherwise k3_reduce sums the partial tiles in a fixed order
+//     (groups ascending, then splits).  No float atomics anywhere: two calls
+//     give the same bits.
 
-constexpr int TN = 64;               // dW columns per block
-constexpr int THREADS = 128;
-constexpr int DTC = 64;              // C rows of dW per block
-constexpr int DTQ = 64;              // queries per step
-constexpr int DLDA = DTC + 8;
-constexpr int DLDB = TN + 8;
-constexpr int DLDC = TN + 4;
-constexpr int DW_TARGET_BLOCKS = 132 * 16;
+constexpr int K3_KP = 64;        // pairs per pipeline stage
+constexpr int K3_TC = 64;        // dW rows (input channels) per block
+constexpr int K3_THREADS = 128;  // one warpgroup
+constexpr int K3_NSTAGE = 3;
 
-struct DwPlan {
-  int ctiles, ntiles, nchunk, qchunk;
-  bool direct;
+// One block per (64-query tile, group): the tile's map entries [K^2][64]
+// (planes of slabs without a window stay 0: no hit) and its hit count per
+// offset, cnt[g][o][tile].
+__global__ void __launch_bounds__(K1_THREADS)
+    spconv_k3_map(const K1Args a, int* __restrict__ gmap,
+                  int* __restrict__ cnt, int T) {
+  constexpr int TQ = K1_TQ;
+  __shared__ int s_map[KMAX * KMAX * TQ];
+  __shared__ int s_mask[KMAX * KMAX * KMAX];
+  __shared__ int s_win[K1_WCAP];
+  __shared__ int s_qkey[TQ];
+  __shared__ int s_lo[KMAX], s_hi[KMAX], s_red[16];
+  const int t = blockIdx.x, g = blockIdx.y;
+  const int K = a.K, KK = K * K, K3 = KK * K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int e = tid; e < KK * TQ; e += K1_THREADS) s_map[e] = 0;
+  k1_block_map(a, g, t * TQ, 0, K3, s_map, s_mask, s_win, s_qkey, s_lo, s_hi,
+               s_red, tid, lane, warp);
+  int* gm = gmap + ((size_t)g * T + t) * KK * TQ;
+  for (int e = tid; e < KK * TQ; e += K1_THREADS) gm[e] = s_map[e];
+  for (int o = warp; o < K3; o += K1_THREADS / 32) {
+    int c = 0;
+    if (s_mask[o]) {
+      const int p = o / K, dz = o - p * K;
+      c = __popc(__ballot_sync(FULL, (s_map[p * TQ + lane] >> dz) & 1)) +
+          __popc(__ballot_sync(FULL, (s_map[p * TQ + 32 + lane] >> dz) & 1));
+    }
+    if (lane == 0) cnt[((size_t)g * K3 + o) * T + t] = c;
+  }
+}
+
+// One block per (group, offset) list: the exclusive prefix of its tiles'
+// counts, in place, and the list's length.
+__global__ void __launch_bounds__(128)
+    spconv_k3_scan(int* __restrict__ cnt, int* __restrict__ lens, int T) {
+  __shared__ int s_w[4];
+  int* c = cnt + (size_t)blockIdx.x * T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int carry = 0;
+  for (int base = 0; base < T; base += 128 * 4) {
+    int v[4], sum = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + tid * 4 + u;
+      v[u] = i < T ? c[i] : 0;
+      sum += v[u];
+    }
+    int inc = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, d);
+      if (lane >= d) inc += y;
+    }
+    if (lane == 31) s_w[warp] = inc;
+    __syncthreads();
+    int run = carry + inc - sum, tot = 0;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      run += w < warp ? s_w[w] : 0;
+      tot += s_w[w];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + tid * 4 + u;
+      if (i < T) c[i] = run;
+      run += v[u];
+    }
+    carry += tot;
+    __syncthreads();
+  }
+  if (tid == 0) lens[blockIdx.x] = carry;
+}
+
+// One block per (64-query tile, group): the tile's pairs (source row, query)
+// of every offset, at the tile's place in the offset's list, ascending in
+// query.  A warp takes a (dx, dy) plane: two entries a lane, one ballot per
+// dz and half tile.
+__global__ void __launch_bounds__(256)
+    spconv_k3_fill(const int* __restrict__ gmap, const int* __restrict__ cnt,
+                   int2* __restrict__ pairs, int NQ, int K, int T) {
+  constexpr int TQ = K1_TQ;
+  const int t = blockIdx.x, g = blockIdx.y, KK = K * K, K3 = KK * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1;
+  const int* gm = gmap + ((size_t)g * T + t) * KK * TQ;
+  for (int p = warp; p < KK; p += 8) {
+    const int e0 = gm[p * TQ + lane], e1 = gm[p * TQ + 32 + lane];
+    for (int dz = 0; dz < K; ++dz) {
+      const bool h0 = (e0 >> dz) & 1, h1 = (e1 >> dz) & 1;
+      const unsigned b0 = __ballot_sync(FULL, h0), b1 = __ballot_sync(FULL, h1);
+      if (!(b0 | b1)) continue;
+      const size_t list = (size_t)g * K3 + p * K + dz;
+      int2* dst = pairs + list * NQ + cnt[list * T + t];
+      const unsigned below = (1u << dz) - 1;
+      if (h0)
+        dst[__popc(b0 & lt)] =
+            make_int2((e0 >> 9) + __popc(e0 & below), t * TQ + lane);
+      if (h1)
+        dst[__popc(b0) + __popc(b1 & lt)] =
+            make_int2((e1 >> 9) + __popc(e1 & below), t * TQ + 32 + lane);
+    }
+  }
+}
+
+// One launch of operand preparation: source (and query) keys, bf16 feats
+// [G, N, Cp] with invalid rows zeroed, bf16 cotangent [G, NQ, Coutp] with
+// invalid query rows zeroed; rows go 8 values (one 16-byte store) per item.
+__global__ void spconv_k3_prep(const int* __restrict__ slat,
+                               const uint8_t* __restrict__ svalid,
+                               const float* __restrict__ feats,
+                               const int* __restrict__ qlat,
+                               const uint8_t* __restrict__ qvalid,
+                               const float* __restrict__ gout, int* sk,
+                               int* qk, __nv_bfloat16* fb, __nv_bfloat16* gb,
+                               int nsrc, int nqry, int nrow, int C, int Cp,
+                               int Cout, int Coutp, int margin, int sx,
+                               int sy, int ex, int ey, int ez) {
+  const int fg = Cp / 8, gg = Coutp / 8;
+  const int nf = nsrc * fg, total = nsrc + nqry + nf + nrow * gg;
+  const bool fvec = C % 4 == 0, gvec = Cout % 4 == 0;
+  const uint8_t* rvalid = qvalid ? qvalid : svalid;  // the cotangent's rows
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += gridDim.x * blockDim.x) {
+    int j = i;
+    if (j < nsrc) {
+      sk[j] = pack_key(slat + 3 * j, svalid[j], margin, sx, sy, ex, ey, ez);
+    } else if ((j -= nsrc) < nqry) {
+      qk[j] = pack_key(qlat + 3 * j, qvalid[j], margin, sx, sy, ex, ey, ez);
+    } else if ((j -= nqry) < nf) {
+      const int r = j / fg, c0 = (j - r * fg) * 8;
+      *reinterpret_cast<uint4*>(fb + (size_t)r * Cp + c0) =
+          bf16x8(feats + (size_t)r * C, c0, C, svalid[r], fvec);
+    } else {
+      j -= nf;
+      const int r = j / gg, n0 = (j - r * gg) * 8;
+      *reinterpret_cast<uint4*>(gb + (size_t)r * Coutp + n0) =
+          bf16x8(gout + (size_t)r * Cout, n0, Cout, rvalid[r], gvec);
+    }
+  }
+}
+
+struct K3Args {
+  const __nv_bfloat16* fb;  // [G, N, Cp]
+  const __nv_bfloat16* gb;  // [G, NQ, Coutp]
+  const int2* pairs;        // [G * K^3][NQ]: (source row, query)
+  const int* lens;          // [G * K^3] pairs of each list
+  float* out;               // [split][G * K^3][C][Cout], or dW when direct
+  int N, NQ, C, Cp, Cout, Coutp, K3, ntiles, split;
 };
 
-DwPlan dw_plan(int G, int NQ, int C, int Cout, int K, int Gw) {
-  DwPlan p;
-  p.ctiles = (C + DTC - 1) / DTC;
-  p.ntiles = (Cout + TN - 1) / TN;
-  const long long per_chunk = (long long)G * K * K * K * p.ctiles * p.ntiles;
-  const int steps = NQ > 0 ? (NQ + DTQ - 1) / DTQ : 1;
-  long long want = (DW_TARGET_BLOCKS + per_chunk - 1) / per_chunk;
-  if (want > steps) want = steps;
-  if (want < 1) want = 1;
-  const int steps_per_chunk = (int)((steps + want - 1) / want);
-  p.qchunk = steps_per_chunk * DTQ;
-  p.nchunk = (steps + steps_per_chunk - 1) / steps_per_chunk;
-  p.direct = p.nchunk == 1 && G == Gw;
-  return p;
+// A stage's tiles: A [K3_KP pairs][64 channels] and B [K3_KP pairs][TN
+// columns] as TN / 64 sub-tiles of [K3_KP][64]; 128-byte rows whose 16-byte
+// chunk c sits at chunk c ^ (row & 7), the 128-byte swizzle of wgmma.
+template <int TN>
+struct K3Smem {
+  static constexpr int A = K3_KP * K3_TC, B = K3_KP * TN;  // bf16 elements
+  static constexpr int bytes = 2 * K3_NSTAGE * (A + B) + 1024;  // + alignment
+};
+
+__device__ __forceinline__ int k3_swz(int row, int chunk) {
+  return row * 64 + ((chunk ^ (row & 7)) << 3);
 }
 
-__global__ void __launch_bounds__(THREADS)
-sparse_conv_dw_kernel(const int* __restrict__ sk, const int* __restrict__ qk,
-                      const __nv_bfloat16* __restrict__ feats,
-                      const __nv_bfloat16* __restrict__ gout,
-                      float* __restrict__ dst, int G, int N, int NQ, int C,
-                      int Cout, int K, int qchunk, int ctiles, int ntiles,
-                      int sx, int sy, int ex, int ey, int ez) {
-  const int chunk = blockIdx.x;
-  const int o = blockIdx.y;
-  int z = blockIdx.z;
-  const int nt = z % ntiles;
-  z /= ntiles;
-  const int ct = z % ctiles;
-  const int g = z / ctiles;
-  const int c0 = ct * DTC, n0 = nt * TN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int h = K / 2, K3 = K * K * K;
-  const int dx = o / (K * K) - h, dy = (o / K) % K - h, dz = o % K - h;
-  const int delta = dx * (1 << sx) + dy * (1 << sy) + dz;
-  const int* gsk = sk + (size_t)g * N;
-  const int* gqk = qk + (size_t)g * NQ;
-  const __nv_bfloat16* gfeat = feats + (size_t)g * N * C;
-  const __nv_bfloat16* ggout = gout + (size_t)g * NQ * Cout;
-  const bool vec_a = (C % 8 == 0) && ((uintptr_t)feats % 16 == 0);
-  const bool vec_b = (Cout % 8 == 0) && ((uintptr_t)gout % 16 == 0);
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand read
+// MN-major: 8-row groups 1024 bytes apart (SBO), 64-column sub-tiles
+// K3_KP * 128 bytes apart (LBO).
+__device__ __forceinline__ uint64_t k3_desc(const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((s & 0x3ffff) >> 4) |
+         (uint64_t)(K3_KP * 128 >> 4) << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
 
-  __shared__ __align__(128) __nv_bfloat16 As[DTQ * DLDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[DTQ * DLDB];
-  __shared__ __align__(128) float Cs[DTC * DLDC];
-  __shared__ int nb[DTQ];
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TN / 16];
-#pragma unroll
-  for (int j = 0; j < TN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+__device__ __forceinline__ void wgmma_n128(float (&d)[16][4], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  const int q_begin = chunk * qchunk;
-  const int q_end = min(NQ, q_begin + qchunk);
-  for (int q0 = q_begin; q0 < q_end; q0 += DTQ) {
-    int r = -1;
-    if (tid < DTQ && q0 + tid < q_end) {
-      const int key = gqk[q0 + tid];
-      if (key != INVALID_KEY) {
-        const int xd = key >> sx, yd = (key >> sy) & (ey - 1),
-                  zd = key & (ez - 1);
-        if (xd + dx >= 0 && xd + dx < ex && yd + dy >= 0 && yd + dy < ey &&
-            zd + dz >= 0 && zd + dz < ez) {
-          const int t = key + delta;
-          const int pos = lower_bound(gsk, N, t);
-          if (pos < N && gsk[pos] == t) r = pos;
-        }
-      }
-    }
-    if (tid < DTQ) nb[tid] = r;
-    if (!__syncthreads_or(r >= 0)) continue;
-
-    // A: hit rows of feats, channels [c0, c0 + DTC)
-    for (int e = tid; e < DTQ * (DTC / 8); e += THREADS) {
-      const int rr = e / (DTC / 8), c = c0 + (e % (DTC / 8)) * 8;
-      const int row = nb[rr];
-      __nv_bfloat16* d = &As[rr * DLDA + (e % (DTC / 8)) * 8];
-      if (row >= 0 && vec_a && c + 8 <= C) {
-        *reinterpret_cast<uint4*>(d) =
-            *reinterpret_cast<const uint4*>(gfeat + (size_t)row * C + c);
-      } else {
+// acc[c, n] += sum over the stage's pairs p of A[p, c] B[p, n], four k16
+// steps of wgmma m64nNk16: warp w of the warpgroup holds dW rows
+// [16 w, 16 w + 16), acc[j] columns [8 j, 8 j + 8).
+template <int TN>
+__device__ __forceinline__ void k3_mma(float (&acc)[TN / 8][4],
+                                       const __nv_bfloat16* As,
+                                       const __nv_bfloat16* Bs) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          d[u] = (row >= 0 && c + u < C) ? gfeat[(size_t)row * C + c + u]
-                                         : zero;
-      }
-    }
-    // B: gout rows of the queries with a hit, columns [n0, n0 + TN)
-    for (int e = tid; e < DTQ * (TN / 8); e += THREADS) {
-      const int rr = e / (TN / 8), n = n0 + (e % (TN / 8)) * 8;
-      const bool hit = nb[rr] >= 0;
-      const size_t q = (size_t)(q0 + rr);
-      __nv_bfloat16* d = &Bs[rr * DLDB + (e % (TN / 8)) * 8];
-      if (hit && vec_b && n + 8 <= Cout) {
-        *reinterpret_cast<uint4*>(d) =
-            *reinterpret_cast<const uint4*>(ggout + q * Cout + n);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          d[u] = (hit && n + u < Cout) ? ggout[q * Cout + n + u] : zero;
-      }
-    }
-    __syncthreads();
-    // acc[c, n] += sum_q A[q, c] * B[q, n]: A^T read as a col-major matrix_a
-#pragma unroll
-    for (int kk = 0; kk < DTQ; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a;
-      wmma::load_matrix_sync(a, &As[kk * DLDA + warp * 16], DLDA);
-#pragma unroll
-      for (int jn = 0; jn < TN / 16; ++jn) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b;
-        wmma::load_matrix_sync(b, &Bs[kk * DLDB + jn * 16], DLDB);
-        wmma::mma_sync(acc[jn], a, b, acc[jn]);
-      }
-    }
-    __syncthreads();
+  for (int ks = 0; ks < K3_KP / 16; ++ks) {
+    const uint64_t da = k3_desc(As + ks * 16 * 64);
+    const uint64_t db = k3_desc(Bs + ks * 16 * 64);
+    if constexpr (TN == 64) wgmma_n64(acc, da, db);
+    else wgmma_n128(acc, da, db);
   }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
 
+// Grid (C tile x Cout tile, split, group x offset).
+template <int TN>
+__global__ void __launch_bounds__(K3_THREADS)
+    spconv_k3_gemm(const K3Args a) {
+  using S = K3Smem<TN>;
+  constexpr int NST = K3_NSTAGE, BSUB = TN / 64;
+  extern __shared__ unsigned char k3_smem[];
+  const unsigned s0 = (unsigned)__cvta_generic_to_shared(k3_smem);
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(
+      k3_smem + (((s0 + 1023) & ~1023u) - s0));  // swizzle atoms: 1024-aligned
+  __nv_bfloat16* sB = sA + NST * S::A;
+  const int go = blockIdx.z, sp = blockIdx.y;
+  const int g = go / a.K3;
+  const int ct = blockIdx.x / a.ntiles, nt = blockIdx.x - ct * a.ntiles;
+  const int c0 = ct * K3_TC, n0 = nt * TN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the block's pairs: split sp of the (g, o) list
+  const int n = a.lens[go], per = (n + a.split - 1) / a.split;
+  const int p0 = min(n, sp * per), np = min(n, p0 + per) - p0;
+  const int2* list = a.pairs + (size_t)go * a.NQ + p0;
+  const __nv_bfloat16* gf = a.fb + (size_t)g * a.N * a.Cp;
+  const __nv_bfloat16* gg = a.gb + (size_t)g * a.NQ * a.Coutp;
+
+  // each thread copies 16-byte chunk `seg` of rows rbase + 16 j of A and of
+  // every B sub-tile; its swizzled chunk is the same in all of them
+  const int seg = tid & 7, rbase = tid >> 3;
+  const int sw = k3_swz(rbase, seg), ca = c0 + seg * 8;
+  const bool a_ok = ca < a.Cp;
+  int2 pf[K3_KP / 16];  // the pairs of the next step to load
+  auto fetch = [&](int step) {
 #pragma unroll
-  for (int jn = 0; jn < TN / 16; ++jn)
-    wmma::store_matrix_sync(&Cs[warp * 16 * DLDC + jn * 16], acc[jn], DLDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-  // dst: [nchunk][G][K3][C][Cout] partials, or dW itself when direct
-  float* out = dst + (((size_t)chunk * G + g) * K3 + o) * C * Cout;
-  for (int e = tid; e < DTC * TN; e += THREADS) {
-    const int c = c0 + e / TN, n = n0 + e % TN;
-    if (c < C && n < Cout) out[(size_t)c * Cout + n] = Cs[(e / TN) * DLDC + e % TN];
+    for (int j = 0; j < K3_KP / 16; ++j) {
+      const int p = step * K3_KP + rbase + 16 * j;
+      pf[j] = p < np ? list[p] : make_int2(-1, 0);
+    }
+  };
+  auto issue = [&](int st) {
+    __nv_bfloat16* As = sA + st * S::A + sw;
+    __nv_bfloat16* Bs = sB + st * S::B + sw;
+#pragma unroll
+    for (int j = 0; j < K3_KP / 16; ++j) {
+      const bool ok = pf[j].x >= 0, oka = ok && a_ok;
+      cp_async16(As + j * 16 * 64,
+                 oka ? gf + ((size_t)pf[j].x * a.Cp + ca) : gf, oka ? 16 : 0);
+#pragma unroll
+      for (int h = 0; h < BSUB; ++h) {
+        const int nn = n0 + h * 64 + seg * 8;
+        const bool okb = ok && nn < a.Coutp;
+        cp_async16(Bs + h * K3_KP * 64 + j * 16 * 64,
+                   okb ? gg + ((size_t)pf[j].y * a.Coutp + nn) : gg,
+                   okb ? 16 : 0);
+      }
+    }
+  };
+
+  float acc[TN / 8][4];
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int steps = (np + K3_KP - 1) / K3_KP;
+  fetch(0);
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < steps) {
+      issue(s);
+      fetch(s + 1);
+    }
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<NST - 2>();
+    // the copies are read by the async proxy (wgmma)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // step s has landed; stage (s - 1) is free
+    if (s + NST - 1 < steps) {
+      issue((s + NST - 1) % NST);
+      fetch(s + NST);
+    }
+    cp_async_commit();
+    const int st = s % NST;
+    k3_mma<TN>(acc, sA + st * S::A, sB + st * S::B);
+  }
+  cp_async_wait<0>();
+
+  // ---- epilogue: the f32 tile to dW (direct) or to this split's partial --
+  float* dst = a.out + ((size_t)sp * gridDim.z + go) * a.C * a.Cout;
+  const bool pair = (a.Cout & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = c0 + warp * 16 + (lane >> 2) + hf * 8;
+      const int nn = n0 + j * 8 + (lane & 3) * 2;
+      if (c >= a.C) continue;
+      float* d = dst + (size_t)c * a.Cout + nn;
+      const float v0 = acc[j][2 * hf], v1 = acc[j][2 * hf + 1];
+      if (pair && nn + 1 < a.Cout) {
+        *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+      } else {
+        if (nn < a.Cout) d[0] = v0;
+        if (nn + 1 < a.Cout) d[1] = v1;
+      }
+    }
+}
+
+// dW[gw, e] = sum over groups g = gw, gw + Gw, ... (ascending) and then
+// splits (ascending) of the partial tiles: a fixed order.
+__global__ void spconv_k3_reduce(const float* __restrict__ part,
+                                 float* __restrict__ out, long long per_group,
+                                 int G, int Gw, int split) {
+  const long long n = (long long)Gw * per_group;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int gw = (int)(i / per_group);
+    const long long e = i - gw * per_group;
+    float s = 0.f;
+    for (int g = gw; g < G; g += Gw)
+      for (int p = 0; p < split; ++p)
+        s += part[((long long)p * G + g) * per_group + e];
+    out[i] = s;
   }
 }
 
-// dW[gw, o, c, n] = sum over groups g = gw, gw + Gw, ... (ascending) and
-// then chunks (ascending) of the partial tiles: a fixed order.
-__global__ void sparse_conv_dw_reduce(const float* __restrict__ part,
-                                      float* __restrict__ out, int G, int Gw,
-                                      int nchunk, long long per_group) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)Gw * per_group) return;
-  const int gw = (int)(i / per_group);
-  const long long e = i % per_group;
-  float s = 0.f;
-  for (int g = gw; g < G; g += Gw)
-    for (int c = 0; c < nchunk; ++c)
-      s += part[((long long)c * G + g) * per_group + e];
-  out[i] = s;
+template <int TN>
+cudaError_t k3_gemm_launch(const K3Args& a, dim3 grid, cudaStream_t st) {
+  using S = K3Smem<TN>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spconv_k3_gemm<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::bytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  spconv_k3_gemm<TN><<<grid, K3_THREADS, S::bytes, st>>>(a);
+  return cudaGetLastError();
 }
-
 }  // namespace
-
-// Floats of partial scratch that sparse_conv_dw_launch needs (0: none).
-extern "C" long long sparse_conv_dw_plan(int G, int NQ, int C, int Cout,
-                                         int K, int Gw) {
-  const DwPlan p = dw_plan(G, NQ, C, Cout, K, Gw);
-  if (p.direct) return 0;
-  return (long long)p.nchunk * G * K * K * K * C * Cout;
-}
-
-extern "C" int sparse_conv_dw_launch(const void* sk, const void* qk,
-                                     const void* feats, const void* gout,
-                                     void* part, void* out, int G, int N,
-                                     int NQ, int C, int Cout, int Gw, int K,
-                                     int sx, int sy, int ex, int ey, int ez,
-                                     void* stream) {
-  if (K > KMAX || K % 2 == 0 || Gw <= 0 || G % Gw != 0)
-    return (int)cudaErrorInvalidValue;
-  const DwPlan p = dw_plan(G, NQ, C, Cout, K, Gw);
-  const int K3 = K * K * K;
-  const long long per_group = (long long)K3 * C * Cout;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (NQ == 0) {
-    cudaMemsetAsync(out, 0, sizeof(float) * Gw * per_group, st);
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid(p.nchunk, K3, G * p.ctiles * p.ntiles);
-  sparse_conv_dw_kernel<<<grid, THREADS, 0, st>>>(
-      (const int*)sk, (const int*)qk, (const __nv_bfloat16*)feats,
-      (const __nv_bfloat16*)gout, (float*)(p.direct ? out : part), G, N, NQ,
-      C, Cout, K, p.qchunk, p.ctiles, p.ntiles, sx, sy, ex, ey, ez);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.direct) return (int)err;
-  const long long total = (long long)Gw * per_group;
-  const int threads = 256;
-  sparse_conv_dw_reduce<<<(unsigned)((total + threads - 1) / threads),
-                          threads, 0, st>>>((const float*)part, (float*)out,
-                                            G, Gw, p.nchunk, per_group);
-  return (int)cudaGetLastError();
-}
-
 
 // K1: prep, gemm and (split > 1) reduce on one stream.  The plan (tn,
 // col_inner, split, per_split) comes from the wrapper's table
@@ -882,5 +1093,77 @@ extern "C" int spconv_k1_launch(
   const int rb = (int)((n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8);
   spconv_k1_reduce<<<rb, 256, 0, st>>>((const float*)part, (float*)out, n,
                                        split);
+  return (int)cudaGetLastError();
+}
+
+// K3: prep, map, scan, fill, gemm and (unless direct) reduce on one stream.
+// The plan (tn, split) comes from the wrapper's table
+// (ops/sparse_conv.py::k3_plan); the scratch pointers from its layout
+// (_k3_scratch).
+extern "C" int spconv_k3_launch(
+    const void* slat, const void* svalid, const void* feats, const void* qlat,
+    const void* qvalid, const void* gout, void* sk, void* qk, void* fb,
+    void* gb, void* gmap, void* cnt, void* lens, void* pairs, void* part,
+    void* out, int G, int N, int NQ, int C, int Cout, int Gw, int K, int tn,
+    int split, int margin, int sx, int sy, int ex, int ey, int ez,
+    void* stream) {
+  const int K3 = K * K * K;
+  if (K > KMAX || K % 2 == 0 || Gw <= 0 || G % Gw != 0 ||
+      (tn != 64 && tn != 128) || split < 1 || split > 65535 ||
+      N >= (1 << 22) || (long long)G * K3 > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || C == 0 || Cout == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long per_group = (long long)K3 * C * Cout;
+  if (NQ == 0)
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * Gw * per_group, st);
+  const int Cp = (C + 15) / 16 * 16, Coutp = (Cout + 7) / 8 * 8;
+  const int T = (NQ + K1_TQ - 1) / K1_TQ;
+  const long long nsrc = (long long)G * N, nqry = qlat ? (long long)G * NQ : 0;
+  const long long work =
+      nsrc + nqry + nsrc * Cp / 8 + (long long)G * NQ * Coutp / 8;
+  if (work >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((work + 255) / 256 < 132 * 16 ? (work + 255) / 256
+                                                          : 132 * 16);
+  spconv_k3_prep<<<blocks, 256, 0, st>>>(
+      (const int*)slat, (const uint8_t*)svalid, (const float*)feats,
+      (const int*)qlat, (const uint8_t*)qvalid, (const float*)gout, (int*)sk,
+      (int*)qk, (__nv_bfloat16*)fb, (__nv_bfloat16*)gb, (int)nsrc, (int)nqry,
+      G * NQ, C, Cp, Cout, Coutp, margin, sx, sy, ex, ey, ez);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  K1Args m = {};
+  m.sk = (const int*)sk;
+  m.qk = qlat ? (const int*)qk : (const int*)sk;
+  m.N = N; m.NQ = NQ; m.K = K;
+  m.sx = sx; m.sy = sy; m.ex = ex; m.ey = ey; m.ez = ez;
+  spconv_k3_map<<<dim3(T, G), K1_THREADS, 0, st>>>(m, (int*)gmap, (int*)cnt,
+                                                   T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  spconv_k3_scan<<<G * K3, 128, 0, st>>>((int*)cnt, (int*)lens, T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  spconv_k3_fill<<<dim3(T, G), 256, 0, st>>>((const int*)gmap,
+                                             (const int*)cnt, (int2*)pairs,
+                                             NQ, K, T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const bool direct = split == 1 && G == Gw;
+  K3Args a;
+  a.fb = (const __nv_bfloat16*)fb;
+  a.gb = (const __nv_bfloat16*)gb;
+  a.pairs = (const int2*)pairs;
+  a.lens = (const int*)lens;
+  a.out = (float*)(direct ? out : part);
+  a.N = N; a.NQ = NQ; a.C = C; a.Cp = Cp; a.Cout = Cout; a.Coutp = Coutp;
+  a.K3 = K3; a.ntiles = (Cout + tn - 1) / tn; a.split = split;
+  const dim3 grid((Cp + K3_TC - 1) / K3_TC * a.ntiles, split, G * K3);
+  err = tn == 64 ? k3_gemm_launch<64>(a, grid, st)
+                 : k3_gemm_launch<128>(a, grid, st);
+  if (err != cudaSuccess || direct) return (int)err;
+  const long long n = (long long)Gw * per_group;
+  const int rb = (int)((n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8);
+  spconv_k3_reduce<<<rb, 256, 0, st>>>((const float*)part, (float*)out,
+                                       per_group, G, Gw, split);
   return (int)cudaGetLastError();
 }

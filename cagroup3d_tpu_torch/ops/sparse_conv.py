@@ -32,10 +32,13 @@ of its feature gradient.  Queries may otherwise come in any order.
 
 The CUDA kernels are in ``csrc/sparse_conv.cu`` (K1: an operand-prep
 pass, the map-and-gather-GEMM pass with the plan of ``k1_plan``, and a
-reduce pass over offset splits; no float atomics, so two calls give the
-same bits); ``sparse_conv_plain`` and ``sparse_conv_dw_plain`` are their
-plain PyTorch versions, used for CPU tensors and as the reference on the
-card.
+reduce pass over offset splits; K3: an operand-prep pass, the map built
+once per call as one pair list per (group, offset), and a pipelined
+tensor-core GEMM over dense pair chunks with the plan of ``k3_plan``,
+then a reduce pass over splits and shared weight groups; no float
+atomics, so two calls give the same bits); ``sparse_conv_plain`` and
+``sparse_conv_dw_plain`` are their plain PyTorch versions, used for CPU
+tensors and as the reference on the card.
 """
 from __future__ import annotations
 
@@ -129,30 +132,6 @@ def sources_sorted(src_lat: torch.Tensor, src_valid: torch.Tensor) -> bool:
     """Whether every group's packed source keys ascend (the contract)."""
     sk = pack_coords(src_lat, src_valid)
     return bool((sk[:, 1:] >= sk[:, :-1]).all())
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
-            t.device != device or not t.is_contiguous():
-        raise ValueError(f"sparse_conv: {name} must be a contiguous {dtype} "
-                         f"{tuple(shape)} on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-
-
-def _keys(src_lat, src_valid, qry_lat, qry_valid, K, feats, n_out):
-    """Validate a launch and pack its key tables: (sk, qk)."""
-    dev = feats.device
-    if dev.type != "cuda":
-        raise ValueError(f"sparse_conv: no kernel for device {dev}")
-    G, N, C = feats.shape
-    if K % 2 == 0 or K > 9 or G % n_out != 0:
-        raise ValueError(f"sparse_conv: unsupported K={K} or {G} groups "
-                         f"over {n_out} weight groups")
-    sk = pack_coords(src_lat, src_valid).contiguous()
-    qk = sk if qry_lat is None else pack_coords(qry_lat, qry_valid).contiguous()
-    _check(sk, "source keys", torch.int32, (G, N), dev)
-    _check(qk, "query keys", torch.int32, (G, qk.shape[1]), dev)
-    return sk, qk
 
 
 # K1's plan table.  A block owns K1_TQ queries of one group, ``col_inner``
@@ -297,6 +276,63 @@ def sparse_conv_dfeats_plain(src_lat, src_valid, w, kernel_size: int, gout,
                              src_lat, src_valid)
 
 
+# K3's plan table.  A block owns one (group, offset, 64-row C tile,
+# ``tn``-column Cout tile) of dW and split ``s`` of the (group, offset) pair
+# list, whose n pairs the kernel cuts ceil(n / split) a split.
+K3_TC, K3_KP = 64, 64            # dW rows per block, pairs per pipeline step
+
+
+class K3Plan(NamedTuple):
+    tn: int
+    split: int
+
+
+@functools.lru_cache(maxsize=None)
+def k3_plan(G: int, NQ: int, C: int, Cout: int, K: int) -> K3Plan:
+    """K3's tile width and pair split for one launch: 64-column tiles up to
+    Cout 64, 128 above; where the dW tiles alone would be under two waves
+    of the card's SMs, each (group, offset) list is split over blocks (at
+    most one split per ``K3_KP`` queries, since a list holds at most NQ
+    pairs) and the partial tiles summed in order."""
+    tn = 64 if Cout <= 64 else 128
+    tiles = G * K ** 3 * -(-C // K3_TC) * -(-Cout // tn)
+    split = 1
+    if 0 < tiles < 2 * K1_SMS:
+        split = max(1, min(-(-2 * K1_SMS // tiles), -(-NQ // K3_KP)))
+    return K3Plan(tn, split)
+
+
+def _k3_scratch(G, N, NQ, C, Cout, Gw, K, has_query, split):
+    """Byte offsets (256-aligned) of K3's scratch -- source keys, query
+    keys, bf16 feats [G, N, Cp], bf16 cotangent [G, NQ, Coutp], the map:
+    the tiles' entries [G, T, K^2, 64], the counts [G, K^3, T] (then each
+    tile's place in its list), the list lengths [G, K^3] and the pair lists
+    [G, K^3, NQ] of (row, query), and the f32 partials [split, G, K^3, C,
+    Cout] unless the gemm writes dW directly -- the total, and the map's
+    share of it."""
+    Cp, Coutp = -(-C // 16) * 16, -(-Cout // 8) * 8
+    K3, T = K ** 3, -(-NQ // K1_TQ)
+    direct = split == 1 and G == Gw
+    sizes = (4 * G * N, 4 * G * NQ if has_query else 0, 2 * G * N * Cp,
+             2 * G * NQ * Coutp, 4 * G * T * K * K * K1_TQ, 4 * G * K3 * T,
+             4 * G * K3, 8 * G * K3 * NQ,
+             0 if direct else 4 * split * G * K3 * C * Cout)
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    return offsets, total, sum(-(-n // 256) * 256 for n in sizes[4:8])
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_launcher():
+    fn = build.load("sparse_conv").spconv_k3_launch
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 15 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def sparse_conv_dw(src_lat: torch.Tensor, src_valid: torch.Tensor,
                    src_feats: torch.Tensor, gout: torch.Tensor,
                    kernel_size: int, w_groups: int,
@@ -308,34 +344,45 @@ def sparse_conv_dw(src_lat: torch.Tensor, src_valid: torch.Tensor,
     if src_feats.device.type == "cpu":
         return sparse_conv_dw_plain(src_lat, src_valid, src_feats, gout,
                                     kernel_size, w_groups, qry_lat, qry_valid)
-    K = kernel_size
-    G, N, C = src_feats.shape
-    sk, qk = _keys(src_lat, src_valid, qry_lat, qry_valid, K, src_feats,
-                   w_groups)
-    NQ, Cout = qk.shape[1], gout.shape[-1]
+    K, Gw = kernel_size, w_groups
     dev = src_feats.device
-    qv = src_valid if qry_lat is None else qry_valid
-    feats = zero_invalid(src_feats, src_valid).to(torch.bfloat16).contiguous()
-    g16 = zero_invalid(gout, qv).to(torch.bfloat16).contiguous()
-    _check(feats, "feats", torch.bfloat16, (G, N, C), dev)
-    _check(g16, "gout", torch.bfloat16, (G, NQ, Cout), dev)
-    lib = build.load("sparse_conv")
-    plan = lib.sparse_conv_dw_plan
-    plan.argtypes = [ctypes.c_int] * 6
-    plan.restype = ctypes.c_longlong
-    n_part = plan(G, NQ, C, Cout, K, w_groups)
-    out = torch.empty(w_groups, K ** 3, C, Cout, dtype=torch.float32,
-                      device=dev)
-    part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
-    fn = lib.sparse_conv_dw_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if dev.type != "cuda":
+        raise ValueError(f"sparse_conv_dw: no kernel for device {dev}")
+    G, N, C = src_feats.shape
+    NQ = N if qry_lat is None else qry_lat.shape[1]
+    Cout = gout.shape[-1]
+    if K % 2 == 0 or K > 9 or Gw <= 0 or G % Gw != 0 or N >= 1 << 22 or \
+            G * K ** 3 > 65535 or tuple(gout.shape) != (G, NQ, Cout) or \
+            tuple(src_lat.shape) != (G, N, 3) or \
+            tuple(src_valid.shape) != (G, N) or (qry_lat is not None and (
+                tuple(qry_lat.shape) != (G, NQ, 3) or
+                tuple(qry_valid.shape) != (G, NQ))):
+        raise ValueError(f"sparse_conv_dw: gout {tuple(gout.shape)} does not "
+                         f"fit K={K}, {Gw} weight groups, feats "
+                         f"{tuple(src_feats.shape)} and the tables")
+    tensors = [src_lat.to(torch.int32).contiguous(),
+               src_valid.to(torch.bool).contiguous(),
+               src_feats.float().contiguous()]
+    if qry_lat is not None:
+        tensors += [qry_lat.to(torch.int32).contiguous(),
+                    qry_valid.to(torch.bool).contiguous()]
+    tensors.append(gout.float().contiguous())
+    if any(t.device != dev for t in tensors):
+        raise ValueError("sparse_conv_dw: every input must be on one device")
+    ptrs = [t.data_ptr() for t in tensors]
+    if qry_lat is None:
+        ptrs[3:3] = [None, None]
+    plan = k3_plan(G, NQ, C, Cout, K)
+    offsets, total, _ = _k3_scratch(G, N, NQ, C, Cout, Gw, K,
+                                    qry_lat is not None, plan.split)
+    scratch = torch.empty(total, dtype=torch.uint8, device=dev)
+    out = torch.empty(Gw, K ** 3, C, Cout, dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     (ex, ey, ez), (sx, sy) = key_extents(), key_shifts()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(sk.data_ptr(), qk.data_ptr(), feats.data_ptr(), g16.data_ptr(),
-             part.data_ptr(), out.data_ptr(), G, N, NQ, C, Cout, w_groups, K,
-             sx, sy, ex, ey, ez, stream)
+    err = _k3_launcher()(
+        *ptrs, *(base + o for o in offsets), out.data_ptr(), G, N, NQ, C,
+        Cout, Gw, K, *plan, MARGIN, sx, sy, ex, ey, ez,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "sparse_conv_dw")
     with _count_lock:
         sparse_conv_dw.launches += 1

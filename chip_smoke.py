@@ -25,7 +25,9 @@ Phases, one JSON line each; any failure exits 1 without the final line.
    and a second call on the same inputs giving the same bits; each shape
    prints the plan it took (``k1_plan``: tile width, column tiles per
    block, offset split) and each form's time with the previous kernel
-   design and whether this run is within half of it.
+   design and whether this run is within half of it, and the time of the
+   library yardstick, one ``torch.bmm`` on the zero-filled gathered
+   operand (built before timing; ``library_ms``).
 5. k2      -- the recorded (overflowing) K2 call and a non-overflowing one
    at G=18, P=65536, F=64, cap=4096; counts exact, sums within both bars,
    the same bits from a second call; the plan (rows per block, blocks).
@@ -39,7 +41,9 @@ Phases, one JSON line each; any failure exits 1 without the final line.
    and every K3 call; each against its plain version on the same inputs,
    grouped by main-path form (a)-(f), with the bars of phase 4 (same
    bits on a second call included) and every source table key-sorted;
-   kernel, plain and bound ms per form, plans and earlier times as in 4.
+   kernel, plain, library and bound ms per form, plans and earlier times
+   as in 4 (K3: ``k3_plan``'s tile width and pair split, and the bytes of
+   its map scratch).
 9. train   -- full-width ScanNet CAGroup3D trained with the YAML's
    OPTIMIZATION (AdamW, lr 1e-3, wd 1e-4, clip 10) at B = 4 synthetic
    100k-point scenes per step: one warm-up and three timed steps with the
@@ -104,6 +108,17 @@ K1_MS_BEFORE = {
                             "d_head_cls_k9": 5.738,
                             "e_head_expand_k5": 0.726,
                             "f_roi_grid_k5": 0.814}}
+# K3's ms per main-path form with its first design (a block per (group,
+# offset, 64 x 64 dW tile, query chunk) searching the source table per
+# query; this script on an NVIDIA H100 80GB HBM3 at 700.00 W): the
+# redesign's bar is half of each
+K3_MS_BEFORE = {"a_backbone_subm_k3": 13.498, "b_backbone_down_k3": 6.178,
+                "c_head_offset_k3": 0.405, "d_head_cls_k9": 6.038,
+                "e_head_expand_k5": 0.517, "f_roi_grid_k5": 0.790}
+MS_BEFORE = {**K1_MS_BEFORE, "k3_weight_backward": K3_MS_BEFORE}
+# the library yardstick (one torch.bmm on the gathered operand) runs in
+# chunks of groups of at most this many operand bytes
+LIB_CHUNK_BYTES = 1 << 30
 # the card's peak rates (NVIDIA data sheet, H100 SXM, dense, 700 W)
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 
@@ -149,9 +164,9 @@ def row_err(a, b):
 
 
 def against_before(kind, name, f):
-    """This run's ms of a K1 form beside its first design's and the half
-    bar."""
-    old = K1_MS_BEFORE.get(kind, {}).get(name)
+    """This run's ms of a K1 or K3 form beside its first design's and the
+    half bar."""
+    old = MS_BEFORE.get(kind, {}).get(name)
     return {} if old is None else {"ms_before": old,
                                    "half_of_before": f["ms"] <= old / 2}
 
@@ -218,6 +233,60 @@ def bwd_forms(calls, group_of):
         else:
             forms.append(f"a_backbone_subm_k{K}")
     return forms
+
+
+def gathered(src_lat, src_valid, feats, K, qry_lat=None, qry_valid=None):
+    """The zero-filled gathered operand of a sparse conv, bf16 [G, NQ,
+    K^3 C]: per offset each query's neighbour row (invalid rows zeroed) or
+    zeros -- the TPU kernel's own formulation, a dense [QW, K C] tile per
+    query block."""
+    import torch
+    from cagroup3d_tpu_torch.core.kernel_maps import kernel_offsets
+    from cagroup3d_tpu_torch.core.sparse import zero_invalid
+    from cagroup3d_tpu_torch.ops.sparse_conv import _hits
+    if qry_lat is None:
+        qry_lat, qry_valid = src_lat, src_valid
+    G, _, C = feats.shape
+    f16 = zero_invalid(feats, src_valid).to(torch.bfloat16)
+    offs = torch.as_tensor(kernel_offsets(K), device=feats.device)
+    op = torch.zeros(G, qry_lat.shape[1], offs.shape[0] * C,
+                     dtype=torch.bfloat16, device=feats.device)
+    for o in range(offs.shape[0]):
+        pos, hit = _hits(src_lat, src_valid, qry_lat, qry_valid, offs[o])
+        op[:, :, o * C:(o + 1) * C] = zero_invalid(torch.gather(
+            f16, 1, pos[..., None].expand(-1, -1, C)), hit)
+    return op
+
+
+def bmm_ms(a, b):
+    """ms of torch.bmm(a, b) in chunks of groups (no operand chunk above
+    LIB_CHUNK_BYTES), summed."""
+    import torch
+    n = max(1, LIB_CHUNK_BYTES // (a[0].numel() * a.element_size()))
+    return sum(time_ms(lambda i=i: torch.bmm(a[i:i + n], b[i:i + n]), 3)
+               for i in range(0, a.shape[0], n))
+
+
+def library_conv_ms(src_lat, src_valid, feats, w, K, qry_lat=None,
+                    qry_valid=None):
+    """K1's yardstick: one torch.bmm of the gathered operand [G, NQ, K^3 C]
+    (built before timing, as K2's ids are) with the weights [G, K^3 C,
+    Cout]."""
+    import torch
+    op = gathered(src_lat, src_valid, feats, K, qry_lat, qry_valid)
+    G = op.shape[0]
+    wg = w.to(torch.bfloat16)[torch.arange(G, device=w.device) % w.shape[0]]
+    return bmm_ms(op, wg.reshape(G, op.shape[2], -1))
+
+
+def library_dw_ms(src_lat, src_valid, feats, gout, K, Gw, qry_lat=None,
+                  qry_valid=None):
+    """K3's yardstick: one torch.bmm of the gathered operand, transposed
+    [G, K^3 C, NQ], with the cotangent [G, NQ, Cout] (the sum over groups
+    that share weights left out)."""
+    import torch
+    op = gathered(src_lat, src_valid, feats, K, qry_lat, qry_valid)
+    return bmm_ms(op.transpose(1, 2), gout.to(torch.bfloat16))
 
 
 def grad_report(model_a, model_b, prefix):
@@ -368,13 +437,14 @@ def k1_args(args, kw):
     return a
 
 
-def replay(calls, forms, run, plain, info, reps_plain):
+def replay(calls, forms, run, plain, info, reps_plain, library):
     """Replay recorded calls with the kernel and the plain version on the
     same inputs and gather per-form stats: errors (``rel_err``,
     ``row_err``), zero rows, sorted sources, whether a second kernel call
-    gives the same bits, CUDA-event ms of both and the bound ms.
-    ``info(args, kw)`` -> (zero-row mask or None, source tables that must
-    be key-sorted, (bytes, FLOPs), shape dict with the launch's plan)."""
+    gives the same bits, CUDA-event ms of both, the bound ms and the
+    library yardstick's ms (``library(args, kw)``).  ``info(args, kw)`` ->
+    (zero-row mask or None, source tables that must be key-sorted, (bytes,
+    FLOPs), shape dict with the launch's plan)."""
     import torch
     stats = {}
     with torch.no_grad():
@@ -384,7 +454,8 @@ def replay(calls, forms, run, plain, info, reps_plain):
             rows, tables, (n_bytes, flops), shape = info(args, kw)
             f = stats.setdefault(form, dict(
                 calls=0, max_rel=0.0, max_row=0.0, max_abs=0.0, ms=0.0,
-                plain_ms=0.0, bound_ms=0.0, bytes=0, flops=0, zero_ok=True,
+                plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, flops=0,
+                zero_ok=True,
                 sorted=True, same_bits=True, shapes=[]))
             f["calls"] += 1
             f["same_bits"] &= bool(torch.equal(got, again))
@@ -396,6 +467,7 @@ def replay(calls, forms, run, plain, info, reps_plain):
             f["sorted"] &= all(sources_sorted_(*t) for t in tables)
             f["ms"] += time_ms(lambda: run(*args, **kw), 5)
             f["plain_ms"] += time_ms(lambda: plain(*args, **kw), reps_plain)
+            f["library_ms"] += library(*args, **kw)
             f["bytes"] += n_bytes
             f["flops"] += flops
             if shape not in f["shapes"]:
@@ -445,24 +517,47 @@ def dfeats_info(args, kw):
                  plan=k1_plan(G, N, Cout, C, K)._asdict()))
 
 
+def dw_args(args):
+    """(src_lat, src_valid, feats, gout, K, Gw, qry_lat, qry_valid) of a
+    recorded sparse_conv_dw call."""
+    return (list(args) + [None, None])[:8]
+
+
 def dw_info(args, kw):
-    src_lat, src_valid, feats, gout, K, Gw, qry_lat, qry_valid = \
-        (list(args) + [None, None])[:8]
+    from cagroup3d_tpu_torch.ops.sparse_conv import _k3_scratch, k3_plan
+    src_lat, src_valid, feats, gout, K, Gw, qry_lat, qry_valid = dw_args(args)
     G, N, C = feats.shape
     NQ, Cout = gout.shape[1], gout.shape[2]
     hits = conv_hits(src_lat, src_valid, K, qry_lat, qry_valid)
+    plan = k3_plan(G, NQ, C, Cout, K)
+    _, scratch, map_bytes = _k3_scratch(G, N, NQ, C, Cout, Gw, K,
+                                        qry_lat is not None, plan.split)
     return (None, [(src_lat, src_valid)],
             dw_cost(G, N, NQ, C, Cout, Gw, K, hits, qry_lat is None),
-            dict(G=G, N=N, NQ=NQ, C=C, Cout=Cout, Gw=Gw, K=K))
+            dict(G=G, N=N, NQ=NQ, C=C, Cout=Cout, Gw=Gw, K=K,
+                 plan=plan._asdict(), map_scratch_bytes=map_bytes,
+                 scratch_bytes=scratch))
+
+
+def dfeats_library_ms(src_lat, src_valid, w, K, gout, qry_lat=None,
+                      qry_valid=None):
+    """The feature backward's yardstick: K1's with the query table as the
+    source, the cotangent as the rows and ``w_rev_t(w)``."""
+    from cagroup3d_tpu_torch.ops.sparse_conv import w_rev_t
+    if qry_lat is None:
+        return library_conv_ms(src_lat, src_valid, gout, w_rev_t(w), K)
+    return library_conv_ms(qry_lat, qry_valid, gout, w_rev_t(w), K, src_lat,
+                           src_valid)
 
 
 def total(stats):
-    """Summed ms, plain ms, bound (over all forms' bytes and FLOPs) and the
-    largest absolute error of a replay's forms."""
+    """Summed ms, plain ms, library ms, bound (over all forms' bytes and
+    FLOPs) and the largest absolute error of a replay's forms."""
     ms_b, by = bound(sum(f["bytes"] for f in stats.values()),
                      sum(f["flops"] for f in stats.values()))
     return dict(ms=sum(f["ms"] for f in stats.values()),
                 plain_ms=sum(f["plain_ms"] for f in stats.values()),
+                library_ms=sum(f["library_ms"] for f in stats.values()),
                 bound_ms=ms_b, bound_by=by,
                 max_abs=max(f["max_abs"] for f in stats.values()))
 
@@ -496,15 +591,17 @@ def phase_k3(model, dev, needed):
     model.zero_grad(set_to_none=True)
     fwd_stats = replay(fwd_calls, [k1_form(i, fwd_calls)
                                    for i in range(len(fwd_calls))],
-                       sparse_conv, sparse_conv_plain, k1_info, 2)
+                       sparse_conv, sparse_conv_plain, k1_info, 2,
+                       library_conv_ms)
     dfe_stats = replay(dfe_calls, bwd_forms(
         dfe_calls, lambda a: (a[4].shape[0], a[3], len(a) > 5 and
                               a[5] is not None)),
-        sparse_conv_dfeats, sparse_conv_dfeats_plain, dfeats_info, 2)
+        sparse_conv_dfeats, sparse_conv_dfeats_plain, dfeats_info, 2,
+        dfeats_library_ms)
     dw_stats = replay(dw_calls, bwd_forms(
         dw_calls, lambda a: (a[2].shape[0], a[4], len(a) > 6 and
                              a[6] is not None)),
-        sparse_conv_dw, sparse_conv_dw_plain, dw_info, 2)
+        sparse_conv_dw, sparse_conv_dw_plain, dw_info, 2, library_dw_ms)
     for kind, st_ in (("k1_train_forward", fwd_stats),
                       ("k1_feature_backward", dfe_stats),
                       ("k3_weight_backward", dw_stats)):
@@ -746,7 +843,8 @@ def main():
     # 4. K1 against its plain version at every recorded call ------------
     forms = replay(k1_calls, [k1_form(i, k1_calls)
                               for i in range(len(k1_calls))],
-                   sparse_conv, sparse_conv_plain, k1_info, 2)
+                   sparse_conv, sparse_conv_plain, k1_info, 2,
+                   library_conv_ms)
     for name, f in sorted(forms.items()):
         emit({"phase": "k1", "form": name, **f,
               **against_before("k1", name, f)})
@@ -892,8 +990,9 @@ def main():
                             max(f["max_abs"] for f in forms.values())),
          "ms": k1_train["ms"], "plain_ms": k1_train["plain_ms"],
          "bound_ms": k1_train["bound_ms"], "bound_by": k1_train["bound_by"],
-         "library_ms": None, "eval_ms": k1_eval["ms"],
-         "eval_bound_ms": k1_eval["bound_ms"]},
+         "library_ms": k1_train["library_ms"], "eval_ms": k1_eval["ms"],
+         "eval_bound_ms": k1_eval["bound_ms"],
+         "eval_library_ms": k1_eval["library_ms"]},
         {"name": "K2 segsum", "route": "cuda",
          "source": "cagroup3d_tpu_torch/csrc/segsum.cu",
          "replaces": "cagroup3d_tpu/ops/pallas_segsum.py:64",
@@ -908,7 +1007,8 @@ def main():
          "launches": train_launches["sparse_conv_dw"],
          "max_abs_err": k3_train["max_abs"], "ms": k3_train["ms"],
          "plain_ms": k3_train["plain_ms"], "bound_ms": k3_train["bound_ms"],
-         "bound_by": k3_train["bound_by"], "library_ms": None}]})
+         "bound_by": k3_train["bound_by"],
+         "library_ms": k3_train["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -28,8 +28,10 @@ open, class prior lifted), answers three warm-up 100k-point scenes
    ``--train-steps`` steps split into forward (``forward_train`` with the
    losses), ``backward()`` and the optimizer update, each bracketed by
    synchronizations; then ``torch.profiler`` over one step: kernel ms and
-   launches per step, K1 and K3 kernel ms, busy share = kernel ms / step
-   ms, the ten largest kernels, and the peak device memory.
+   launches per step, K1 and K3 kernel ms (every pass of each) and
+   launches, K3's ms per pass (prep, map, scan, fill, gemm, reduce), busy
+   share = kernel ms / step ms, the ten largest kernels, and the peak
+   device memory.
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -37,6 +39,7 @@ The card's name and power limit are printed first, as ``nvidia-smi
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,10 +48,9 @@ from collections import defaultdict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel-name parts of each kernel's passes (csrc/*.cu): K1 prep, map +
-# gather-GEMM and split reduce; K2 head count and run reduce; K3 and its
-# reduce
-K1_NAME, K2_NAME, K3_NAME = "spconv_k1_", "segsum_k2_", \
-    "sparse_conv_dw"
+# gather-GEMM and split reduce; K2 head count and run reduce; K3 prep, map,
+# scan, fill, GEMM and reduce
+K1_NAME, K2_NAME, K3_NAME = "spconv_k1_", "segsum_k2_", "spconv_k3_"
 
 
 def emit(obj, log):
@@ -235,6 +237,11 @@ def main():
             k[1] += 1
     total_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    k3_pass = defaultdict(float)
+    for n, v in kernels.items():
+        m = re.search(K3_NAME + r"(\w+)", n)
+        if m:
+            k3_pass[m.group(1)] += v[0]
     emit({"phase": "train", **card, "scenes_per_step": TRAIN_B,
           "steps": args.train_steps,
           "median_ms": {k: statistics.median(v) for k, v in split.items()},
@@ -244,6 +251,11 @@ def main():
                                 if K1_NAME in n),
           "k3_ms_per_step": sum(v[0] for n, v in kernels.items()
                                 if K3_NAME in n),
+          "k1_launches_per_step": sum(v[1] for n, v in kernels.items()
+                                      if K1_NAME in n),
+          "k3_launches_per_step": sum(v[1] for n, v in kernels.items()
+                                      if K3_NAME in n),
+          "k3_ms_by_pass": dict(k3_pass),
           "busy_share": (total_ms / step_med if kernels
                          else "not measured"),
           "top_kernels": [{"name": n[:80], "ms_per_step": v[0],

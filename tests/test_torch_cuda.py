@@ -23,7 +23,7 @@ from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
                                                  sparse_conv_dfeats_plain,
                                                  sparse_conv_dw,
                                                  sparse_conv_dw_plain,
-                                                 sparse_conv_plain)
+                                                 sparse_conv_plain, k3_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,7 +49,7 @@ def _row(a, b):
     return float(((a - b).abs().amax(-1) / den).max())
 
 
-def _tables(seed, G, P, C, cap, side, dev, wrap=False):
+def _tables(seed, G, P, C, cap, side, dev, wrap=False, flat=False):
     g = torch.Generator().manual_seed(seed)
     coords, valid, feats = [], [], []
     for _ in range(G):
@@ -58,6 +58,8 @@ def _tables(seed, G, P, C, cap, side, dev, wrap=False):
             z = lat[:, 2]
             lat[:, 2] = torch.where(z < side // 2, z - 8,
                                     1015 - (z - side // 2))
+        if flat:   # one z plane: offsets with dz != 0 have no neighbour
+            lat[:, 2] = 0
         f = torch.randn(P, C, generator=g)
         st, _ = unique_voxels(lat, f, torch.rand(P, generator=g) < 0.8, cap)
         coords.append(st.coords)
@@ -172,15 +174,27 @@ def test_segment_sums_kernel(dev, case):
 # the main-path forms of K3 and K1's backward, at small sizes:
 # (a) subm k3 3->64 and 512->512, (b) down k3 at coords, (c) k3 64->64,
 # (d) per-class k9, (e) per-class k5, (f) RoI k5 at coords 64->128, and
-# weight groups shared by several groups (Gw < G)
-BWD_FORMS = [(3, 1, 1, 3, 64, False), (3, 1, 1, 512, 512, False),
-             (3, 1, 1, 64, 128, True), (3, 1, 1, 64, 64, False),
-             (9, 3, 3, 64, 64, False), (5, 3, 3, 64, 64, False),
-             (5, 1, 1, 64, 128, True), (5, 3, 1, 32, 64, False)]
+# weight groups shared by several groups (Gw < G); then K3's edges: "flat"
+# (one z plane: offsets with no pair), "dead" (group 1 all invalid), "big"
+# (17000 rows: a (group, offset) list spans several pair splits), C 20
+# and 16 (not multiples of 64; 20 not of 16), Cout 128 and 512.
+BWD_FORMS = [(3, 1, 1, 3, 64, False, ""), (3, 1, 1, 512, 512, False, ""),
+             (3, 1, 1, 64, 128, True, ""), (3, 1, 1, 64, 64, False, ""),
+             (9, 3, 3, 64, 64, False, ""), (5, 3, 3, 64, 64, False, ""),
+             (5, 1, 1, 64, 128, True, ""), (5, 3, 1, 32, 64, False, ""),
+             (5, 1, 1, 64, 64, False, "flat"), (3, 3, 3, 64, 64, False, "dead"),
+             (9, 3, 1, 16, 128, False, "dead"), (3, 1, 1, 64, 64, False, "big"),
+             (3, 1, 1, 20, 64, False, ""), (3, 1, 1, 16, 512, True, "")]
 
 
-def _bwd_case(dev, k, G, Gw, C, Cout, query):
-    lat, valid, feats = _tables(k, G, 900, C, 512, 12, dev)
+def _bwd_case(dev, k, G, Gw, C, Cout, query, kind):
+    if kind == "big":
+        lat, valid, feats = _tables(k, G, 30000, C, 17000, 40, dev)
+    else:
+        lat, valid, feats = _tables(k, G, 900, C, 512, 12, dev,
+                                    flat=kind == "flat")
+    if kind == "dead":
+        valid[1] = False
     w = torch.randn(Gw, k ** 3, C, Cout, device=dev) * 0.1
     q = _tables(k + 1, G, 700, 1, 384, 12, dev)[:2] if query else (None, None)
     NQ = q[0].shape[1] if query else lat.shape[1]
@@ -188,9 +202,13 @@ def _bwd_case(dev, k, G, Gw, C, Cout, query):
     return lat, valid, feats, w, q, gout
 
 
-@pytest.mark.parametrize("k,G,Gw,C,Cout,query", BWD_FORMS)
-def test_sparse_conv_dw_kernel(dev, k, G, Gw, C, Cout, query):
-    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query)
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query,kind", BWD_FORMS)
+def test_sparse_conv_dw_kernel(dev, k, G, Gw, C, Cout, query, kind):
+    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query,
+                                              kind)
+    NQ = gout.shape[1]
+    if kind == "big":
+        assert k3_plan(G, NQ, C, Cout, k).split > 1
     before = sparse_conv_dw.launches
     got = sparse_conv_dw(lat, valid, feats, gout, k, Gw, *q)
     torch.cuda.synchronize()
@@ -199,13 +217,17 @@ def test_sparse_conv_dw_kernel(dev, k, G, Gw, C, Cout, query):
     assert got.shape == (Gw, k ** 3, C, Cout)
     assert _rel(got, ref) < 2e-2
     assert _row(got, ref) < 1e-3
+    if kind == "flat":              # offsets with dz != 0 have no pair
+        dz = torch.arange(k ** 3) % k != k // 2
+        assert bool((got[:, dz] == 0).all()) and bool((ref[:, dz] == 0).all())
     again = sparse_conv_dw(lat, valid, feats, gout, k, Gw, *q)
     assert torch.equal(got, again)          # fixed summation order
 
 
-@pytest.mark.parametrize("k,G,Gw,C,Cout,query", BWD_FORMS)
-def test_sparse_conv_dfeats_kernel(dev, k, G, Gw, C, Cout, query):
-    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query)
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query,kind", BWD_FORMS)
+def test_sparse_conv_dfeats_kernel(dev, k, G, Gw, C, Cout, query, kind):
+    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query,
+                                              kind)
     got = sparse_conv_dfeats(lat, valid, w, k, gout, *q)
     ref = sparse_conv_dfeats_plain(lat, valid, w, k, gout, *q)
     assert got.shape == feats.shape
@@ -214,9 +236,10 @@ def test_sparse_conv_dfeats_kernel(dev, k, G, Gw, C, Cout, query):
     assert bool((got[~valid] == 0).all())
 
 
-@pytest.mark.parametrize("k,G,Gw,C,Cout,query", BWD_FORMS)
-def test_sparse_conv_autograd(dev, k, G, Gw, C, Cout, query):
-    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query)
+@pytest.mark.parametrize("k,G,Gw,C,Cout,query,kind", BWD_FORMS)
+def test_sparse_conv_autograd(dev, k, G, Gw, C, Cout, query, kind):
+    lat, valid, feats, w, q, gout = _bwd_case(dev, k, G, Gw, C, Cout, query,
+                                              kind)
     grads = []
     for fn in (sparse_conv, sparse_conv_plain):
         f = feats.clone().requires_grad_(True)

@@ -1,4 +1,5 @@
-"""K1's plan table (``ops/sparse_conv.k1_plan``) at the main path's shapes.
+"""K1's and K3's plan tables (``ops/sparse_conv.k1_plan``, ``k3_plan``) at
+the main path's shapes.
 
 The kernel (``csrc/sparse_conv.cu::spconv_k1_gemm``) reads a plan as its
 grid: blockIdx.x takes 64 queries, blockIdx.y a (column group, offset
@@ -9,13 +10,22 @@ ScanNet model -- the 16 distinct shapes of the 39 K1 calls of the eval
 forward and of a training step's forward, and the 15 of the 38 feature
 backward calls (K1 on the transposed problem) -- the blocks must cover
 each (query, column, offset) exactly once, and the offsets must split
-wherever the grid would be under two waves of the card's SMs.  Pure
-Python, a few milliseconds.
+wherever the grid would be under two waves of the card's SMs.
+
+K3 (``spconv_k3_gemm``) reads its plan as a grid of (C tile x Cout tile,
+pair split, group x offset): at the 16 distinct shapes of the 39 K3 calls
+of a training step, the blocks of each (group, split) must cover each
+(offset, C, Cout) element of dW once, each split of a pair list its pairs
+once, the splits must fill two waves of the card's SMs
+wherever the list lengths allow it, and the scratch stays under 0.5 GB.
+Pure Python, a few milliseconds.
 """
 import numpy as np
 import pytest
 
-from cagroup3d_tpu_torch.ops.sparse_conv import K1_SMS, K1_TQ, k1_plan
+from cagroup3d_tpu_torch.ops.sparse_conv import (K1_SMS, K1_TQ, K3_KP,
+                                                 K3_TC, _k3_scratch,
+                                                 k1_plan, k3_plan)
 
 # (form, G, NQ, C, Cout, K) of the K1 launches; the source table's size
 # does not enter the plan
@@ -95,3 +105,99 @@ def test_k1_plan_fills_the_card(shape):
     # fill two waves
     assert plan.col_inner == 1 or G * gx >= waves
     assert gy <= 65535 and G <= 65535
+
+
+# (form, G, N, NQ, C, Cout, K, Gw) of the K3 launches of a training step:
+# (a) 7 submanifold k3 shapes, (b) 5 down k3 at coords (N = 2 NQ), (c) the
+# head's feature_offset k3, (d) and (e) the per-class k9 and k5, (f) the RoI
+# grid k5 at coords
+K3_SHAPES = [
+    ("a", 1, 65536, 65536, 3, 64, 3, 1), ("a", 1, 65536, 65536, 64, 64, 3, 1),
+    ("a", 1, 32768, 32768, 64, 64, 3, 1),
+    ("a", 1, 16384, 16384, 128, 128, 3, 1),
+    ("a", 1, 8192, 8192, 256, 256, 3, 1), ("a", 1, 4096, 4096, 512, 512, 3, 1),
+    ("a", 1, 2048, 2048, 128, 128, 3, 1),
+    ("b", 1, 4096, 2048, 512, 512, 3, 1), ("b", 1, 8192, 4096, 256, 512, 3, 1),
+    ("b", 1, 16384, 8192, 128, 256, 3, 1),
+    ("b", 1, 32768, 16384, 64, 128, 3, 1),
+    ("b", 1, 65536, 32768, 64, 64, 3, 1),
+    ("c", 1, 32768, 32768, 64, 64, 3, 1),
+    ("d", 18, 4096, 4096, 64, 64, 9, 18), ("e", 18, 2048, 2048, 64, 64, 5, 18),
+    ("f", 1, 32768, 16384, 64, 128, 5, 1)]
+K3_IDS = [f"{f}-G{G}-N{N}-NQ{NQ}-{C}x{Cout}-k{K}"
+          for f, G, N, NQ, C, Cout, K, _ in K3_SHAPES]
+
+
+def _k3_grid(plan, G, C, Cout, K):
+    """The kernel's grid: (C tiles x Cout tiles, splits, groups x offsets)
+    and the Cout tile count."""
+    ntiles = -(-Cout // plan.tn)
+    cp = -(-C // 16) * 16
+    return (-(-cp // K3_TC) * ntiles, plan.split, G * K ** 3), ntiles
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=K3_IDS)
+def test_k3_plan_covers_every_dw_element_once(shape):
+    _, G, N, NQ, C, Cout, K, Gw = shape
+    plan = k3_plan(G, NQ, C, Cout, K)
+    (gx, gy, gz), ntiles = _k3_grid(plan, G, C, Cout, K)
+    # blockIdx.x -> (C tile, Cout tile): each (c, n) of a dW slice once
+    cover = np.zeros((C, Cout), np.int64)
+    for x in range(gx):
+        ct, nt = divmod(x, ntiles)
+        c0, n0 = ct * K3_TC, nt * plan.tn
+        assert c0 < C and n0 < Cout          # no block without output
+        cover[c0:c0 + K3_TC, n0:n0 + plan.tn] += 1
+    assert (cover == 1).all()
+    # blockIdx.z -> (group, offset): each once; a weight group gathers its
+    # G / Gw groups and every split, by the reduce unless written directly
+    go = np.zeros((G, K ** 3), np.int64)
+    for z in range(gz):
+        go[divmod(z, K ** 3)] += 1
+    assert (go == 1).all()
+    per_weight = np.bincount(np.arange(G) % Gw, minlength=Gw) * gy
+    assert (per_weight == G // Gw * plan.split).all()
+    direct = plan.split == 1 and G == Gw
+    _, total, _ = _k3_scratch(G, N, NQ, C, Cout, Gw, K, shape[0] in "bf",
+                              plan.split)
+    partials = 4 * plan.split * G * K ** 3 * C * Cout
+    assert direct or total >= partials
+    assert total < 0.5e9                     # the worst case at k9: ~0.48 GB
+    assert gy <= 65535 and gz <= 65535
+
+
+def _pair_range(n, split, s):
+    """[begin, end) of split ``s`` of a list of ``n`` pairs, as
+    ``spconv_k3_gemm`` cuts it: ceil(n / split) pairs a split."""
+    per = -(-n // split)
+    begin = min(n, s * per)
+    return begin, min(n, begin + per)
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=K3_IDS)
+def test_k3_pair_splits_cover_each_pair_once(shape):
+    _, G, N, NQ, C, Cout, K, _ = shape
+    plan = k3_plan(G, NQ, C, Cout, K)
+    # a (group, offset) list holds at most NQ pairs
+    for n in sorted({0, 1, K3_KP - 1, K3_KP, K3_KP + 1, NQ // 3, NQ - 1, NQ}):
+        seen = np.zeros(n, np.int64)
+        for s in range(plan.split):
+            b, e = _pair_range(n, plan.split, s)
+            assert 0 <= b <= e <= n
+            seen[b:e] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=K3_IDS)
+def test_k3_plan_fills_the_card(shape):
+    _, G, N, NQ, C, Cout, K, _ = shape
+    plan = k3_plan(G, NQ, C, Cout, K)
+    assert plan.tn == (64 if Cout <= 64 else 128)
+    (gx, gy, gz), _ = _k3_grid(plan, G, C, Cout, K)
+    waves = 2 * K1_SMS
+    if gx * gz >= waves:
+        assert plan.split == 1
+    else:
+        # split, into at least two waves unless a split per K3_KP queries
+        assert plan.split > 1
+        assert gx * gy * gz >= waves or plan.split == -(-NQ // K3_KP)
