@@ -1,16 +1,17 @@
-"""Greedy NMS over fixed-capacity candidate sets (axis-aligned IoU).
+"""Greedy NMS over fixed-capacity candidate sets.
 
-Counterpart of ``cagroup3d_tpu/core/nms.py`` for the ScanNet path
-(``rotated=False``, pcdet's nms_normal_gpu).  The classes are a batch
-axis: one greedy pass in score order over the candidates suppresses in
-every class at once.  Ties break toward the lower index everywhere, as
+Counterpart of ``cagroup3d_tpu/core/nms.py``: ``rotated=False`` is pcdet's
+nms_normal_gpu (axis-aligned BEV IoU, ScanNet), ``rotated=True`` its
+nms_gpu (rotated BEV IoU, SUN RGB-D).  The classes are a batch axis: one
+greedy pass in score order over the candidates suppresses in every class
+at once.  Ties break toward the lower index everywhere, as
 ``jax.lax.top_k`` and the stable ``jnp.argsort`` do.
 """
 from __future__ import annotations
 
 import torch
 
-from .geometry import iou_bev_aligned, pairwise
+from .geometry import iou_bev_aligned, iou_bev_rotated, pairwise
 
 NEG_INF = -1e10
 
@@ -22,7 +23,8 @@ def topk_stable(x: torch.Tensor, k: int):
 
 
 def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
-               valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+               valid: torch.Tensor, iou_thr: float,
+               rotated: bool = False) -> torch.Tensor:
     """boxes7 [..., N, 7], scores/valid [..., N] -> keep bool[..., N]
     (original order), batched over the leading axes."""
     n = boxes7.shape[-2]
@@ -30,7 +32,8 @@ def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
     order = torch.argsort(-s, dim=-1, stable=True)
     b = torch.gather(boxes7.detach(), -2, order[..., None].expand_as(boxes7))
     v = torch.gather(valid, -1, order)
-    over = pairwise(iou_bev_aligned, b, b) > iou_thr          # [..., N, N]
+    iou_fn = iou_bev_rotated if rotated else iou_bev_aligned
+    over = pairwise(iou_fn, b, b) > iou_thr                   # [..., N, N]
     keep = torch.zeros_like(v)
     suppressed = torch.zeros_like(v)
     for i in range(n):
@@ -44,13 +47,17 @@ def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
 
 def multiclass_nms(bboxes: torch.Tensor, scores: torch.Tensor,
                    valid: torch.Tensor, score_thr: float, iou_thr: float,
-                   per_cls_cap: int, out_cap: int):
-    """Per-class NMS (CAGroup3DHead._nms, axis-aligned).
+                   per_cls_cap: int, out_cap: int, rotated: bool = False,
+                   flip_heading_for_iou: bool = True):
+    """Per-class NMS (CAGroup3DHead._nms).
 
     bboxes [P, 7], scores [P, C], valid [P].  Candidates per class: the top
     ``per_cls_cap`` above ``score_thr``; output: the top ``out_cap`` kept
-    detections over all classes.  Returns (boxes [out_cap, 7],
-    scores [out_cap], labels i64[out_cap], valid [out_cap])."""
+    detections over all classes.  ``rotated`` uses the rotated BEV IoU;
+    with ``flip_heading_for_iou`` its boxes are compared with the heading
+    negated, as the reference calls nms_gpu from the head.  Returns (boxes
+    [out_cap, 7], scores [out_cap], labels i64[out_cap], valid
+    [out_cap])."""
     P, C = scores.shape
     cls_scores = scores.T                                        # [C, P]
     cand = valid[None, :] & (cls_scores > score_thr)
@@ -60,7 +67,10 @@ def multiclass_nms(bboxes: torch.Tensor, scores: torch.Tensor,
     sel_ok = top_s > NEG_INF / 2
     b = bboxes[idx]                                              # [C, K, 7]
     s = torch.gather(cls_scores, 1, idx)
-    keep = greedy_nms(b, s, sel_ok, iou_thr)
+    b_iou = b
+    if rotated and flip_heading_for_iou:
+        b_iou = torch.cat([b[..., :6], -b[..., 6:7]], dim=-1)
+    keep = greedy_nms(b_iou, s, sel_ok, iou_thr, rotated)
     labels = torch.arange(C, device=scores.device)[:, None].expand_as(keep)
     s_flat = s.reshape(-1)
     top, idx2 = topk_stable(

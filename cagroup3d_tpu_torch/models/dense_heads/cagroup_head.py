@@ -1,8 +1,11 @@
 """CAGroup3D one-stage head: semantic + vote + class-aware grouping, and
 its training loss.
 
-Counterpart of ``cagroup3d_tpu/models/dense_heads/cagroup_head.py`` for
-the axis-aligned (ScanNet) path.  The class axis is a tensor axis: the
+Counterpart of ``cagroup3d_tpu/models/dense_heads/cagroup_head.py``: the
+axis-aligned ScanNet head and the SUN RGB-D yaw head (``WITH_YAW``: three
+votes per voxel, each with its own 64 features, heading boxes in the
+fcaf3d parametrization, rotated NMS and IoU loss, 3-vote targets from the
+containing GT boxes).  The class axis is a tensor axis: the
 per-class fine and expand maps are built together from one sort (kernel K2
 inside ``unique_voxels_classes_paired`` in eval, the differentiable
 ``index_add_`` path in training), the per-class k9 / k5 convs are one
@@ -28,7 +31,8 @@ from ...core.voxelize import unique_voxels_classes_paired
 from ..layers import act, bn, subm
 from ...utils import loss_utils as L
 from ..model_utils.cagroup_utils import bias_init_with_prob
-from .target_assigner.cagroup3d_assigner import CAGroup3DAssigner
+from .target_assigner.cagroup3d_assigner import (CAGroup3DAssigner,
+                                                 find_points_in_boxes)
 
 # Per-class anisotropic voxel sizes (reference cagroup_head.py:75-106).
 SCANNET_VOXELS = [
@@ -41,6 +45,12 @@ SCANNET_VOXELS = [
     [0.1995, 0.2133, 0.3897], [0.1260, 0.1137, 0.5254],
     [0.1781, 0.1774, 0.2218], [0.1526, 0.1520, 0.0904],
     [0.3453, 0.3164, 0.1491], [0.1426, 0.1477, 0.1741]]
+SUNRGBD_VOXELS = [
+    [0.6343, 0.4861, 0.2782], [0.2373, 0.3839, 0.2155],
+    [0.2771, 0.5602, 0.2536], [0.1776, 0.1659, 0.2482],
+    [0.2097, 0.1363, 0.2269], [0.2086, 0.4039, 0.2209],
+    [0.1586, 0.3008, 0.3519], [0.1502, 0.1896, 0.2050],
+    [0.1214, 0.3213, 0.5067], [0.2298, 0.4195, 0.1418]]
 
 
 def _bn_elu(P, S, ctx: Ctx, path: str, x, mask):
@@ -53,20 +63,25 @@ class CAGroup3DHead(nn.Module):
     def __init__(self, model_cfg, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = model_cfg
-        if c.WITH_YAW:
-            raise NotImplementedError("the yaw (SUN RGB-D) head is not ported")
-        if c.EXPAND_RATIO != 3 or c.N_CLASSES == 10:
-            raise NotImplementedError("only the ScanNet head (EXPAND_RATIO 3,"
-                                      " ScanNet voxel table) is ported")
+        if c.EXPAND_RATIO != 3:
+            raise NotImplementedError("the generative up-conv is ported for "
+                                      "EXPAND_RATIO 3 (both datasets' YAMLs)")
         self.n_classes = c.N_CLASSES
         self.out_channels = c.OUT_CHANNELS
         self.n_reg_outs = c.N_REG_OUTS
         self.voxel_size = c.VOXEL_SIZE
         self.expand = c.EXPAND_RATIO
         self.cls_kernel = c.CLS_KERNEL
+        self.with_yaw = bool(c.WITH_YAW)
+        self.gt_per_seed = 3 if self.with_yaw else 1     # votes per voxel
         self.nms_cfg = c.get("NMS_CONFIG", None)
-        vox = [SCANNET_VOXELS[i % len(SCANNET_VOXELS)]
-               for i in range(self.n_classes)]
+        if self.n_classes == 18:
+            vox = SCANNET_VOXELS
+        elif self.n_classes == 10:
+            vox = SUNRGBD_VOXELS
+        else:   # other class counts (tests): the ScanNet table, cycled
+            vox = [SCANNET_VOXELS[i % len(SCANNET_VOXELS)]
+                   for i in range(self.n_classes)]
         self.voxel_size_list = np.clip(np.array(vox) / 2.0, 0.04, 1.0)
         self.fine_cap = int(c.get("FINE_CAP", 4096))
         self.expand_cap = int(c.get("EXPAND_CAP", 2048))
@@ -85,9 +100,9 @@ class CAGroup3DHead(nn.Module):
         init_bn(P, S, "offset_block.1", C)
         init_conv(P, gen, "offset_block.3", 1, C, C)
         init_bn(P, S, "offset_block.4", C)
-        init_conv(P, gen, "offset_block.6", 1, C, 3)
-        init_conv(P, gen, "feature_offset.0", 3, C, C)
-        init_bn(P, S, "feature_offset.1", C)
+        init_conv(P, gen, "offset_block.6", 1, C, 3 * self.gt_per_seed)
+        init_conv(P, gen, "feature_offset.0", 3, C, C * self.gt_per_seed)
+        init_bn(P, S, "feature_offset.1", C * self.gt_per_seed)
         P["semantic_conv.kernel"] = normal_conv(gen, 1, C, n_cls)
         P["semantic_conv.bias"] = torch.full((n_cls,),
                                              bias_init_with_prob(0.01))
@@ -147,18 +162,24 @@ class CAGroup3DHead(nn.Module):
         max_bound = (cmax + st.stride) * v
         min_bound = (cmin - st.stride) * v
         pts_metric = coords * v                                       # [N2, 3]
+        nv, C = self.gt_per_seed, self.out_channels
         voted = torch.clamp(
-            pts_metric[:, None, :] + voxel_offsets.detach()[:, None, :],
-            min_bound, max_bound)                                   # [N2, 1, 3]
+            pts_metric[:, None, :] +
+            voxel_offsets.detach().reshape(N2, nv, 3),
+            min_bound, max_bound)                                   # [N2, nv, 3]
 
         # class selection, plus the first valid voxel so no class map is empty
         sel = torch.sigmoid(sem) > semantic_threshold              # [N2, n_cls]
         sel[torch.argmax(st.valid.to(torch.int32))] = True
         sel = sel & st.valid[:, None]
 
-        pts_all = torch.cat([voted.reshape(N2, 3), pts_metric], dim=0)
-        feats_all = torch.cat([offset_feats, st.feats], dim=0)
-        sel_all = torch.cat([sel, sel], dim=0)                      # [2N2, n_cls]
+        # the fused per-class point set: every vote (with its own slice of
+        # the offset features), then the voxels themselves
+        pts_all = torch.cat([voted.reshape(N2 * nv, 3), pts_metric], dim=0)
+        feats_all = torch.cat([offset_feats.reshape(N2 * nv, C), st.feats],
+                              dim=0)
+        sel_all = torch.cat([sel.repeat_interleave(nv, dim=0), sel],
+                            dim=0)                          # [(nv+1)N2, n_cls]
         if stop_after == "sem_offsets":
             return dict(semantic_scores=sem, voxel_offsets=voxel_offsets,
                         offset_feats=offset_feats, voted=voted, sel=sel)
@@ -216,14 +237,30 @@ class CAGroup3DHead(nn.Module):
     # ------------------------------------------------------------------
     @staticmethod
     def bbox_pred_to_bbox(points, bbox_pred):
-        """Axis-aligned boxes [..., 6] from distances to the six faces."""
+        """Boxes from distances to the six faces: axis-aligned [..., 6], or
+        with the two yaw channels of the yaw head [..., 7] in the fcaf3d
+        parametrization (sin 2a ln q, cos 2a ln q: heading a, BEV size
+        ratio q)."""
         x = points[..., 0] + (bbox_pred[..., 1] - bbox_pred[..., 0]) / 2
         y = points[..., 1] + (bbox_pred[..., 3] - bbox_pred[..., 2]) / 2
         z = points[..., 2] + (bbox_pred[..., 5] - bbox_pred[..., 4]) / 2
-        return torch.stack([x, y, z,
-                            bbox_pred[..., 0] + bbox_pred[..., 1],
-                            bbox_pred[..., 2] + bbox_pred[..., 3],
-                            bbox_pred[..., 4] + bbox_pred[..., 5]], dim=-1)
+        if bbox_pred.shape[-1] == 6:
+            return torch.stack([x, y, z,
+                                bbox_pred[..., 0] + bbox_pred[..., 1],
+                                bbox_pred[..., 2] + bbox_pred[..., 3],
+                                bbox_pred[..., 4] + bbox_pred[..., 5]], dim=-1)
+        # exactly-zero (padded) rows: sqrt and atan2 at (0, 0) give NaN
+        # cotangents even under a zero loss weight
+        s6, c7 = bbox_pred[..., 6], bbox_pred[..., 7]
+        c7 = torch.where((s6.abs() + c7.abs()) < 1e-8,
+                         torch.full_like(c7, 1e-8), c7)
+        scale = (bbox_pred[..., 0] + bbox_pred[..., 1] +
+                 bbox_pred[..., 2] + bbox_pred[..., 3])
+        q = torch.exp(torch.sqrt(s6 ** 2 + c7 ** 2 + 1e-12))
+        alpha = 0.5 * torch.atan2(s6, c7)
+        return torch.stack([x, y, z, scale / (1 + q), scale / (1 + q) * q,
+                            bbox_pred[..., 5] + bbox_pred[..., 4], alpha],
+                           dim=-1)
 
     def get_bboxes(self, out: Dict[str, torch.Tensor]):
         """One scene: flatten the class maps, NMS_PRE top-k, decode,
@@ -242,12 +279,14 @@ class CAGroup3DHead(nn.Module):
         _, ids = topk_stable(torch.where(valid, max_scores,
                                          torch.full_like(max_scores, -1e10)), k)
         boxes = self.bbox_pred_to_bbox(points[ids], bbox_pred[ids])
-        boxes = torch.cat([boxes, torch.zeros_like(boxes[..., :1])], dim=-1)
+        if boxes.shape[-1] == 6:
+            boxes = torch.cat([boxes, torch.zeros_like(boxes[..., :1])],
+                              dim=-1)
         return multiclass_nms(boxes, scores[ids], valid[ids],
                               score_thr=float(self.nms_cfg.SCORE_THR),
                               iou_thr=float(self.nms_cfg.IOU_THR),
                               per_cls_cap=self.nms_per_cls_cap,
-                              out_cap=self.max_rois)
+                              out_cap=self.max_rois, rotated=self.with_yaw)
 
     # ------------------------------------------------------------------
     # loss (reference cagroup_head.py:322-555)
@@ -299,6 +338,31 @@ class CAGroup3DHead(nn.Module):
                                offset_t)
         return offset_t, offset_m
 
+    def _vote_targets_yaw(self, voxel_points, voxel_valid, gt_boxes,
+                          gt_valid):
+        """SUN RGB-D 3-vote targets: the centres of the first three GT
+        boxes (in index order) that contain the voxel, as offsets; an
+        unfilled slot repeats the first.  Returns (targets [N, 9], mask
+        [N]: inside some box)."""
+        inside = find_points_in_boxes(voxel_points, voxel_valid, gt_boxes,
+                                      gt_valid)                     # [N, G]
+        rank = torch.cumsum(inside.to(torch.int32), dim=1)
+        votes, first = [], None
+        for j in range(self.gt_per_seed):
+            sel_j = inside & (rank == j + 1)
+            has_j = sel_j.any(1)[:, None]
+            vote_j = gt_boxes[sel_j.to(torch.uint8).argmax(1), :3] - \
+                voxel_points
+            if j == 0:
+                first = vote_j
+                votes.append(torch.where(has_j, vote_j,
+                                         torch.zeros_like(vote_j)))
+            else:
+                votes.append(torch.where(has_j, vote_j, first))
+        mask = inside.any(1) & voxel_valid
+        vt = torch.cat(votes, dim=-1)
+        return torch.where(mask[:, None], vt, torch.zeros_like(vt)), mask
+
     def loss(self, outs: Dict[str, torch.Tensor], gt_boxes, gt_labels,
              gt_valid, scene_points, scene_valid, sem_mask=None,
              ins_mask=None, ins_cap: int = 128):
@@ -335,10 +399,16 @@ class CAGroup3DHead(nn.Module):
                 ct, bt, lab = self.assigner.assign(
                     outs["points"][b], outs["points_valid"][b], gt_boxes[b],
                     gt_labels[b], gt_valid[b])
-                vt, vm = self._vote_targets_scannet(
-                    outs["semantic_points"][b], outs["semantic_valid"][b],
-                    scene_points[b], scene_valid[b], sem_mask[b],
-                    ins_mask[b], gt_boxes[b], gt_valid[b], ins_cap)
+                if self.with_yaw:
+                    vt, vm = self._vote_targets_yaw(
+                        outs["semantic_points"][b],
+                        outs["semantic_valid"][b], gt_boxes[b], gt_valid[b])
+                else:
+                    vt, vm = self._vote_targets_scannet(
+                        outs["semantic_points"][b],
+                        outs["semantic_valid"][b], scene_points[b],
+                        scene_valid[b], sem_mask[b], ins_mask[b],
+                        gt_boxes[b], gt_valid[b], ins_cap)
                 tgts.append((sem_labels, ct, bt, lab, vt, vm))
             sem_labels, ctgt, btgt, labels, vtgt, vmask = (
                 torch.stack(t) for t in zip(*tgts))
@@ -378,12 +448,20 @@ class CAGroup3DHead(nn.Module):
             l_bbox = L.iou3d_loss(safe_dec, safe_tgt,
                                   weight=torch.where(posm, ctf,
                                                      torch.zeros_like(ctf)),
-                                  avg_factor=cdenorm, with_yaw=False)
-            n_real = semv.float().sum().clamp(min=1.0)
-            wv = (vmask[b].float() / n_real + 1e-6)[:, None]
-            l_vote = L.smooth_l1(outs["voxel_offsets"][b], vtgt[b],
-                                 weight=wv * semv[:, None], beta=beta,
-                                 reduction="sum")
+                                  avg_factor=cdenorm, with_yaw=self.with_yaw)
+            vo, vm = outs["voxel_offsets"][b], vmask[b].float()
+            if self.with_yaw:
+                # absolute vote positions, normalized by the voted voxels
+                wv = (vm / (vm.sum() + 1e-6))[:, None]
+                base = outs["semantic_points"][b].repeat(1, self.gt_per_seed)
+                l_vote = L.smooth_l1(base + vo, base + vtgt[b],
+                                     weight=wv * semv[:, None], beta=beta,
+                                     reduction="sum")
+            else:
+                n_real = semv.float().sum().clamp(min=1.0)
+                wv = (vm / n_real + 1e-6)[:, None]
+                l_vote = L.smooth_l1(vo, vtgt[b], weight=wv * semv[:, None],
+                                     beta=beta, reduction="sum")
             parts.append(torch.stack([w_sem * l_sem, w_cls * l_cls,
                                       w_cen * l_cen, w_bbox * l_bbox,
                                       w_vote * l_vote]))

@@ -7,7 +7,13 @@ lattice, convolved at those query coordinates (k5 conv-at-coords on the
 backbone voxels, kernel K1), scattered back per roi and centre-pooled with
 one dense [G^3*C -> C] contraction, then refined by a Linear+BN+ReLU MLP
 (with dropout in training), decoded and per-class NMS'd (eval), or
-regressed against sampled GT targets (training).
+regressed against sampled GT targets (training).  With ``CODE_SIZE`` 7
+(SUN RGB-D) the grid turns with each roi's heading, the GT is carried into
+the roi's frame (rotated, with an opposite heading flipped), the heading is
+coded as (cos, sin) with ``ENCODE_SINCOS``, decoded boxes are turned back,
+the final NMS is rotated and ``USE_IOU_LOSS`` adds a rotated IoU loss.
+Headings modulo 2 pi use ``torch.remainder``, the sign convention of the
+reference's ``%`` (``torch.fmod`` has the other).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from torch import nn
 
 from ...core.gather import take_rows_masked
+from ...core.geometry import rotate_points_along_z
 from ...core.module import (Ctx, Params, apply_bn, apply_linear, dropout,
                             init_bn, init_conv, init_linear, register_flat)
 from ...core.nms import multiclass_nms
@@ -34,9 +41,8 @@ class CAGroup3DRoIHead(nn.Module):
     def __init__(self, model_cfg, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = model_cfg
-        if c.CODE_SIZE != 6 or c.get("ENCODE_SINCOS", False):
-            raise NotImplementedError("the yaw (rotated) RoI path is not ported")
         self.num_class = c.NUM_CLASSES
+        self.code_size = c.CODE_SIZE
         self.grid_size = c.GRID_SIZE
         self.voxel_size = c.VOXEL_SIZE
         self.coord_key = c.COORD_KEY
@@ -52,14 +58,13 @@ class CAGroup3DRoIHead(nn.Module):
         self.dp_ratio = c.get("DP_RATIO", 0.3)
         self.loss_weight = c.LOSS_WEIGHTS
         self.code_weights = c.LOSS_WEIGHTS.CODE_WEIGHT
-        if c.get("USE_IOU_LOSS", False):
-            raise NotImplementedError("the RoI IoU loss belongs to the yaw "
-                                      "(SUN RGB-D) path")
+        self.use_iou_loss = bool(c.get("USE_IOU_LOSS", False))
         self.proposal_target_layer = ProposalTargetLayer(
             roi_per_image=c.get("ROI_PER_IMAGE", 128),
             fg_ratio=c.get("ROI_FG_RATIO", 0.9),
             reg_fg_thresh=c.get("REG_FG_THRESH", 0.3))
-        self.box_coder = CAGroupResidualCoder()
+        self.box_coder = CAGroupResidualCoder(
+            self.code_size, bool(c.get("ENCODE_SINCOS", False)))
         P, S = self._init(generator or torch.Generator().manual_seed(0))
         register_flat(self, P, S)
 
@@ -96,18 +101,36 @@ class CAGroup3DRoIHead(nn.Module):
         size = rois[:, None, 3:6]
         return (idx[None] + 0.5) / g * size - size / 2
 
+    def pcdet_rois(self, rois):
+        """One-stage rois (mmdet3d heading) in the pcdet frame the RoI
+        stage pools and decodes in: heading negated, sizes enlarged."""
+        rois_pc = torch.cat([rois[:, :6], -rois[:, 6:7]], dim=-1)
+        if self.enlarge_ratio:
+            rois_pc = torch.cat([rois_pc[:, :3],
+                                 rois_pc[:, 3:6] * self.enlarge_ratio,
+                                 rois_pc[:, 6:]], dim=-1)
+        return rois_pc
+
+    def grid_lattice(self, rois):
+        """rois [R, 7] (pcdet heading) -> the lattice cells of their grid
+        points [R * G^3, 3] (rotated by the heading with yaw)."""
+        R, g3 = rois.shape[0], self.grid_size ** 3
+        local = self.get_dense_grid_points(rois)                  # [R, G3, 3]
+        if self.code_size > 6:
+            local = rotate_points_along_z(local, rois[:, 6])
+        pts = (local + rois[:, None, :3]).reshape(R * g3, 3)
+        cell = self.voxel_size * self.coord_key
+        return torch.floor(pts / cell).to(torch.int32)
+
     def roi_grid_pool(self, P, S, ctx: Ctx, st: SparseTensor, rois,
                       roi_valid, prefix: str):
         """rois [R, 7] (pcdet heading) -> pooled [R, C_out]."""
         pl = prefix + ".roi_grid_pool_layers.0"
         R = rois.shape[0]
         g3 = self.grid_size ** 3
-        local = self.get_dense_grid_points(rois)                  # [R, G3, 3]
-        pts = (local + rois[:, None, :3]).reshape(R * g3, 3)
+        lat = self.grid_lattice(rois)
         pvalid = roi_valid.repeat_interleave(g3)
-        cell = self.voxel_size * self.coord_key
-        lat = torch.floor(pts / cell).to(torch.int32)
-        ded, inv = unique_voxels(lat, torch.zeros(R * g3, 1, device=pts.device),
+        ded, inv = unique_voxels(lat, torch.zeros(R * g3, 1, device=lat.device),
                                  pvalid, self.grid_cap, mode="first",
                                  stats=ctx.stats, stat_name="roi_grid")
         # conv of the backbone voxels at the deduplicated grid (kernel K1)
@@ -146,58 +169,88 @@ class CAGroup3DRoIHead(nn.Module):
         rois (one-stage NMS output, mmdet3d heading) keep their gradient,
         as in the JAX package: the regression targets are relative to
         them.  ``draws`` overrides the proposal sampling's random draws."""
-        rois_pc = torch.cat([rois[:, :6], -rois[:, 6:7]], dim=-1)
-        if self.enlarge_ratio:
-            rois_pc = torch.cat([rois_pc[:, :3],
-                                 rois_pc[:, 3:6] * self.enlarge_ratio,
-                                 rois_pc[:, 6:]], dim=-1)
+        rois_pc = self.pcdet_rois(rois)
         tgt = self.proposal_target_layer(
             ctx.generator, rois_pc, roi_scores, roi_labels, roi_valid,
             gt_boxes, gt_labels, gt_valid, draws=draws)
         s_rois = tgt["rois"]
         s_valid = torch.ones(s_rois.shape[0], dtype=torch.bool,
                              device=s_rois.device)
-        # GT in the roi frame (assign_targets): centres relative to the roi
-        gt_src = tgt["gt_of_rois"]
-        two_pi = 2 * np.pi
-        gt_ct = torch.cat([gt_src[:, 0:3] - s_rois[:, 0:3], gt_src[:, 3:6],
-                           (gt_src[:, 6:7] % two_pi) -
-                           (s_rois[:, 6:7] % two_pi)], dim=-1)
+        gt_ct = self.canonical_targets(tgt["gt_of_rois"], s_rois)
         pooled = self.roi_grid_pool(P, S, ctx, st, s_rois, s_valid, prefix)
         rcnn_reg = self.reg_branch(P, S, ctx, pooled, s_valid, prefix)
         return dict(rcnn_reg=rcnn_reg, rois=s_rois, gt_of_rois=gt_ct,
-                    gt_of_rois_src=gt_src,
+                    gt_of_rois_src=tgt["gt_of_rois"],
                     reg_valid_mask=tgt["reg_valid_mask"],
                     roi_labels=tgt["roi_labels"],
                     roi_scores=tgt["roi_scores"], sampled=tgt["sampled"])
 
+    def canonical_targets(self, gt, rois):
+        """The GT of each sampled roi in the roi's frame (assign_targets):
+        centre relative to the roi, heading relative to the roi's; with
+        yaw the centre turned by minus the roi's heading and a heading
+        pointing backwards flipped by pi into [-pi/2, pi/2]."""
+        two_pi = 2 * np.pi
+        roi_ry = torch.remainder(rois[:, 6], two_pi)
+        gt_ct = torch.cat([gt[:, 0:3] - rois[:, 0:3], gt[:, 3:6],
+                           (torch.remainder(gt[:, 6], two_pi) -
+                            roi_ry)[:, None]], dim=-1)
+        if self.code_size == 6:
+            return gt_ct
+        gt_ct = rotate_points_along_z(gt_ct[:, None, :], -roi_ry)[:, 0, :]
+        heading = torch.remainder(gt_ct[:, 6], two_pi)
+        opposite = (heading > np.pi * 0.5) & (heading < np.pi * 1.5)
+        heading = torch.where(opposite,
+                              torch.remainder(heading + np.pi, two_pi),
+                              heading)
+        heading = torch.where(heading > np.pi, heading - two_pi, heading)
+        heading = heading.clamp(-np.pi / 2, np.pi / 2)
+        return torch.cat([gt_ct[:, :6], heading[:, None]], dim=-1)
+
     def loss(self, fwd):
         """Second-stage loss over B scenes (leading scene axis): weighted
-        smooth-L1 of the residual codes of the foreground rois."""
+        smooth-L1 of the residual codes of the foreground rois, and with
+        ``USE_IOU_LOSS`` 1 - IoU of their decoded boxes with the GT."""
+        code = self.code_size
         rois = fwd["rois"].reshape(-1, fwd["rois"].shape[-1])
         gt_ct = fwd["gt_of_rois"].reshape(-1, fwd["gt_of_rois"].shape[-1])
         reg = fwd["rcnn_reg"].reshape(-1, fwd["rcnn_reg"].shape[-1])
         fg = fwd["reg_valid_mask"].reshape(-1) > 0
-        anchors = torch.cat([torch.zeros_like(rois[:, 0:3]), rois[:, 3:6]],
+        anchors = torch.cat([torch.zeros_like(rois[:, 0:3]), rois[:, 3:code]],
                             dim=-1)
-        targets = self.box_coder.encode(gt_ct[:, :6], anchors)
+        if code > 6:
+            anchors = torch.cat([anchors[:, :6],
+                                 torch.zeros_like(anchors[:, 6:7])], dim=-1)
+        targets = self.box_coder.encode(gt_ct[:, :code], anchors)
         elt = L.weighted_smooth_l1(reg, targets,
                                    code_weights=self.code_weights)
         fg_sum = fg.float().sum().clamp(min=1.0)
         loss_reg = (elt * fg[:, None]).sum() / fg_sum
         w = float(self.loss_weight.RCNN_REG_WEIGHT)
         loss_reg = loss_reg * w
+        tb = dict(rcnn_loss_reg=loss_reg)
         total = loss_reg if w > 0 else torch.zeros((), device=reg.device)
-        return total, dict(rcnn_loss_reg=loss_reg, loss_two_stage=total)
+        if self.use_iou_loss:
+            dec = self.decode_boxes(rois, reg)
+            gt_src = fwd["gt_of_rois_src"].reshape(-1, 7)
+            # rows that are not foreground go to the unit box: the clipping
+            # of degenerate boxes has no finite gradient
+            safe = torch.tensor([0, 0, 0, 1, 1, 1, 0.0], device=reg.device)
+            decs = torch.where(fg[:, None], dec, safe)
+            gts = torch.where(fg[:, None], gt_src, safe)
+            liou = L.iou3d_loss(decs, gts, weight=fg.float(),
+                                avg_factor=fg_sum, with_yaw=code > 6)
+            liou = liou * float(self.loss_weight.RCNN_IOU_WEIGHT)
+            tb["rcnn_loss_iou"] = liou
+            total = total + liou
+        tb["loss_two_stage"] = total
+        return total, tb
 
     def forward(self, P, S, ctx: Ctx, st: SparseTensor, rois, roi_scores,
                 roi_labels, roi_valid, prefix: str = "roi_head"):
         """One scene, eval: pool and regress every roi, decode, per-class
         NMS (forward_test of the JAX package)."""
-        rois_pc = rois.clone()
-        rois_pc[:, 6] = -rois_pc[:, 6]
-        if self.enlarge_ratio:
-            rois_pc[:, 3:6] = rois_pc[:, 3:6] * self.enlarge_ratio
+        rois_pc = self.pcdet_rois(rois)
         pooled = self.roi_grid_pool(P, S, ctx, st, rois_pc, roi_valid, prefix)
         rcnn_reg = self.reg_branch(P, S, ctx, pooled, roi_valid, prefix)
         boxes = self.decode_boxes(rois_pc, rcnn_reg)
@@ -206,16 +259,25 @@ class CAGroup3DRoIHead(nn.Module):
         b, s, l, v = multiclass_nms(
             boxes, scores, roi_valid & (rois_pc.abs().sum(-1) > 0),
             score_thr=self.test_score_thr, iou_thr=self.test_iou_thr,
-            per_cls_cap=self.nms_per_cls_cap, out_cap=self.max_out)
-        b = b.clone()
-        b[:, 6] = 0.0
+            per_cls_cap=self.nms_per_cls_cap, out_cap=self.max_out,
+            rotated=self.code_size > 6, flip_heading_for_iou=False)
+        # back to the mmdet3d heading; the axis-aligned boxes have none
+        b = torch.cat([b[:, :6], -b[:, 6:7] if self.code_size > 6 else
+                       torch.zeros_like(b[:, 6:7])], dim=-1)
         return dict(batch_box_preds=b, batch_score_preds=s,
                     batch_cls_preds=l, batch_pred_valid=v, rcnn_reg=rcnn_reg)
 
     def decode_boxes(self, rois_pc, rcnn_reg):
-        """Axis-aligned residual decode; heading 0 appended."""
-        local = rois_pc[:, :6].clone()
-        local[:, 0:3] = 0.0
+        """Residual decode in the roi's frame (generate_predicted_boxes),
+        turned back by the roi's heading with yaw, then moved to the roi's
+        centre; axis-aligned boxes get heading 0."""
+        code = self.code_size
+        local = torch.cat([torch.zeros_like(rois_pc[:, 0:3]),
+                           rois_pc[:, 3:code]], dim=-1)
         dec = self.box_coder.decode(rcnn_reg, local)
+        if code > 6:
+            dec = rotate_points_along_z(dec[:, None, :], rois_pc[:, 6])[:, 0]
         dec = torch.cat([dec[:, 0:3] + rois_pc[:, 0:3], dec[:, 3:]], dim=-1)
-        return torch.cat([dec, torch.zeros_like(dec[:, :1])], dim=-1)
+        if code == 6:
+            dec = torch.cat([dec, torch.zeros_like(dec[:, :1])], dim=-1)
+        return dec

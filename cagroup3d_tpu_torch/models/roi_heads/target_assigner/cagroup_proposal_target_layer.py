@@ -18,7 +18,7 @@ from typing import Dict
 
 import torch
 
-from ....core.geometry import iou3d_rotated_zero_yaw, pairwise
+from ....core.geometry import iou3d_rotated, pairwise
 
 RINT_HIGH = 1 << 30
 
@@ -44,7 +44,7 @@ class ProposalTargetLayer:
     def max_iou_with_same_class(self, rois, roi_labels, roi_valid, gt_boxes,
                                 gt_labels, gt_valid):
         with torch.no_grad():
-            iou = pairwise(iou3d_rotated_zero_yaw, rois[:, :7],
+            iou = pairwise(iou3d_rotated, rois[:, :7],
                            gt_boxes[:, :7])
         same = roi_labels[:, None] == gt_labels[None, :]
         iou = torch.where(same & gt_valid[None, :] & roi_valid[:, None], iou,

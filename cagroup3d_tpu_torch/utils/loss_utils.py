@@ -1,7 +1,6 @@
 """mmdet-style losses (reference pcdet/utils/loss_utils.py, iou3d_loss.py).
 
-Counterpart of ``cagroup3d_tpu/utils/loss_utils.py`` for the ScanNet
-CAGroup3D path.  Static shapes: callers pass element weights/masks instead
+Counterpart of ``cagroup3d_tpu/utils/loss_utils.py`` for CAGroup3D.  Static shapes: callers pass element weights/masks instead
 of boolean indexing, and ``avg_factor`` is an explicit normalizer.  Ignored
 labels are -1, which maps to an all-zero one-hot (pure background in the
 focal loss, the reference's ``target[target < 0] = num_classes``).
@@ -11,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.geometry import iou3d_aligned
+from ..core.geometry import iou3d_aligned, iou3d_rotated
 
 _EPS = float(torch.finfo(torch.float32).eps)
 
@@ -99,13 +98,11 @@ def weighted_smooth_l1(pred, target, weights=None, beta=1.0 / 9.0,
 
 def iou3d_loss(pred7, target7, weight=None, avg_factor=None, with_yaw=True,
                loss_weight=1.0):
-    """1 - IoU3D over pred/target [N, 6|7] (AxisAlignedBboxOverlaps3D);
-    weight [N]."""
-    if with_yaw:
-        raise NotImplementedError(
-            "the rotated IoU loss (with_yaw) comes with the SUN RGB-D yaw "
-            "slice")
-    loss = 1.0 - iou3d_aligned(pred7, target7)
+    """1 - IoU3D over pred/target [N, 6|7]: rotated (cal_iou_3d,
+    differentiable through the polygon clipping) with ``with_yaw``, else
+    axis-aligned (AxisAlignedBboxOverlaps3D); weight [N]."""
+    iou_fn = iou3d_rotated if with_yaw else iou3d_aligned
+    loss = 1.0 - iou_fn(pred7, target7)
     if weight is not None:
         loss = loss * weight
     return _reduce(loss, avg_factor, loss_weight)

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""GPU smoke of the PyTorch port: ScanNet CAGroup3D eval on one NVIDIA card.
+"""GPU smoke of the PyTorch port: CAGroup3D eval and training on one NVIDIA
+card, ScanNet and then SUN RGB-D (the yaw path).
 
 Run from the repository root on a machine with a CUDA GPU:
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits 1 without the final line.
+Phases 3-11 run once per configuration (``Path``): first
+tools/cfgs/scannet_models/CAGroup3D.yaml, then
+tools/cfgs/sunrgbd_models/CAGroup3D.yaml (10 classes, three votes per
+voxel, headed boxes, rotated NMS and IoU losses) on synthetic scenes with
+headed GT boxes; each line names its ``config``.  The kernels' launch
+counters are set to 0 just before each path's main-path run and read just
+after it.
 
 1. device  -- CUDA must be available; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. build   -- compiles the hand-written kernels (csrc/*.cu) with nvcc, one
    process per source in parallel; prints each kernel's registers, static
    shared memory and spill bytes (``ptxas -v``).
-3. warm-up -- builds the full-width ScanNet CAGroup3D from
-   tools/cfgs/scannet_models/CAGroup3D.yaml (INPUT_CAP 65536, FINE_CAP 4096,
-   seeded init, semantic gate open, class prior lifted so the RoI head gets
-   proposals) and answers one 100k-point request, recording the inputs of
-   every K1 (sparse conv) and K2 (segment sum) call.
+3. warm-up -- builds the full-width CAGroup3D from the configuration's
+   YAML (INPUT_CAP 65536, FINE_CAP 4096, seeded init, semantic gate open,
+   class prior lifted so the RoI head gets proposals) and answers one
+   100k-point request, recording the inputs of every K1 (sparse conv) and K2
+   (segment sum) call.
 4. k1      -- every recorded K1 call, kernel against its plain PyTorch
    version on the same inputs, grouped by main-path form (a)-(f); bars:
    relative error < 2e-2 of the output's largest magnitude, per-row error
@@ -27,15 +35,24 @@ Phases, one JSON line each; any failure exits 1 without the final line.
    block, offset split) and each form's time with the previous kernel
    design and whether this run is within half of it, and the time of the
    library yardstick, one ``torch.bmm`` on the zero-filled gathered
-   operand (built before timing; ``library_ms``).
+   operand (built before timing; ``library_ms``).  The earlier designs'
+   times were taken on the ScanNet path and are printed there only.
 5. k2      -- the recorded (overflowing) K2 call and a non-overflowing one
-   at G=18, P=65536, F=64, cap=4096; counts exact, sums within both bars,
-   the same bits from a second call; the plan (rows per block, blocks).
+   with its groups and rows (ScanNet G=18, P=65536; SUN RGB-D G=10,
+   P=131072: three votes and the voxel per stride-2 row), F=64,
+   cap=4096; counts exact, sums within both bars, the same bits from a
+   second call; the plan (rows per block, blocks).
 6. requests -- launch counters reset, three 100k-point scenes (synthetic
    seeds 0, 1, 2) through ``forward_eval``; outputs finite with the
-   expected shapes, both kernels launched; per-scene latency.
+   expected shapes, both kernels launched, headed boxes on the yaw path;
+   per-scene latency.
 7. reference -- a tiny configuration's forward on the card (kernels)
-   against the same model on the CPU (plain versions).
+   against the same model on the CPU (plain versions): same valid and
+   labels, boxes within 1e-2, scores within 1e-3, stage by stage on the
+   same inputs (head; proposals from seeded logits; the RoI stage with the
+   rotated grid cells the devices floor apart counted), then the whole
+   forward, held on ScanNet and printed on the yaw path
+   (``phase_reference``).
 8. k3      -- one full-width training step of one scene (forward, losses,
    ``backward()``), recording every K1 call (forward and feature backward)
    and every K3 call; each against its plain version on the same inputs,
@@ -44,12 +61,14 @@ Phases, one JSON line each; any failure exits 1 without the final line.
    kernel, plain, library and bound ms per form, plans and earlier times
    as in 4 (K3: ``k3_plan``'s tile width and pair split, and the bytes of
    its map scratch).
-9. train   -- full-width ScanNet CAGroup3D trained with the YAML's
-   OPTIMIZATION (AdamW, lr 1e-3, wd 1e-4, clip 10) at B = 4 synthetic
-   100k-point scenes per step: one warm-up and three timed steps with the
-   launch counters reset before them; loss and tb finite, every backbone,
-   head and RoI parameter's gradient finite and each module's non-zero,
-   parameters and BN running stats changed, K1 and K3 launched.
+9. train   -- full-width CAGroup3D trained with the YAML's OPTIMIZATION
+   (AdamW, lr 1e-3, wd 1e-4, clip 10) at its BATCH_SIZE_PER_GPU synthetic
+   100k-point scenes per step (ScanNet 4, SUN RGB-D 8): one warm-up and
+   TRAIN_STEPS (ScanNet) or TRAIN_STEPS_YAW timed steps with the launch
+   counters reset before them; loss and tb finite (the yaw path's
+   ``rcnn_loss_iou`` among them), every backbone, head and RoI
+   parameter's gradient finite and each module's non-zero, parameters and
+   BN running stats changed, K1 and K3 launched; peak memory.
 10. train-reference -- one training step of the tiny configuration at
    B = 2 on the card against the same step on the CPU, same draws, zero
    votes (a vote's floor is the one discrete step that f32 round-off
@@ -62,12 +81,13 @@ Phases, one JSON line each; any failure exits 1 without the final line.
    the CPU's backbone gradient by about half its norm (see
    ``grad_report``).
 11. learn  -- the tiny configuration, one fixed B = 2 batch, 30 steps: the
-   loss falls at least by LEARN_MARGIN, nine tenths of the drop the JAX
-   package's step makes on the CPU in the same setting
-   (``tests/learn_margin.py``).
+   loss falls at least nine tenths of the drop the JAX package's step makes
+   on the CPU in the same setting (``JAX_LEARN_DROP``, ``JAX_LEARN_DROP_YAW``
+   from ``tests/learn_margin.py [--yaw]``).
 
-The line before the last is {"kernels": [...]}, the last is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}: per kernel the launches of
+both paths' main-path runs summed, the ScanNet path's times and each
+path's own under ``paths``.  The last is {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -79,17 +99,22 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CFG = os.path.join(HERE, "tools", "cfgs", "scannet_models", "CAGroup3D.yaml")
+CFGS = {name: os.path.join(HERE, "tools", "cfgs", f"{name}_models",
+                           "CAGroup3D.yaml") for name in ("scannet", "sunrgbd")}
+CFG = CFGS["scannet"]
 INPUT_CAP, FINE_CAP, N_POINTS = 65536, 4096, 100_000
 TOL, ROW_TOL = 2e-2, 1e-3
-TRAIN_B, TRAIN_STEPS, LEARN_STEPS = 4, 3, 30
+TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 3, 2, 30
+NEEDED = ("a_", "b_", "c_", "d_", "e_", "f_")    # the main-path forms
 STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
 # the drop, 1 - last / first loss, that the JAX package's step makes on
 # the CPU in the learn setting (tests/learn_margin.py; the port's CPU step
 # made 0.3653 in the same run); the random streams of the two packages
 # differ, so the card must reach nine tenths of it
 JAX_LEARN_DROP = 0.3663
-LEARN_MARGIN = 0.9 * JAX_LEARN_DROP
+# the same for the SUN RGB-D configuration on headed scenes
+# (tests/learn_margin.py --yaw; the port's CPU step made 0.2190)
+JAX_LEARN_DROP_YAW = 0.2285
 # K1's ms per main-path form with its first design (a 64 x 64 WMMA tile
 # rebuilding its kernel map per column tile; this script on an NVIDIA H100
 # 80GB HBM3 at 700.00 W): the redesign's bar is half of each, printed
@@ -363,14 +388,13 @@ def tiny_config(seed_cfg=CFG):
     return tc, list(cfg.CLASS_NAMES), cfg
 
 
-def tiny_train_config():
-    """The tiny configuration for the training phases: class maps with room
-    for every voxel of TINY_TRAIN_SCENE (no capacity window moves from step
-    to step), no RoI dropout, and jittered GT boxes among the proposals
+def tiny_train_config(seed_cfg=CFG):
+    """The tiny configuration for the training phases: larger class maps,
+    no RoI dropout, and jittered GT boxes among the proposals
     (``ROI_GT_AUG``; an untrained one-stage net proposes no box that
     overlaps a GT by IoU 0.3, which would leave the RoI loss and its
     gradients at zero)."""
-    tc, names, cfg = tiny_config()
+    tc, names, cfg = tiny_config(seed_cfg)
     tc.DENSE_HEAD.update(FINE_CAP=2048, EXPAND_CAP=1024)
     tc.ROI_HEAD.DP_RATIO = 0.0
     tc.ROI_GT_AUG = 0.05
@@ -384,15 +408,16 @@ TINY_TRAIN_SCENE = dict(n_points=1500, room=(3.0, 3.0, 2.5), n_objects=4)
 def synthetic_train_batch(seed: int, device, batch_size: int,
                           n_points: int = 100_000, n_classes: int = 18,
                           **kw):
-    """B synthetic scenes as a ``forward_train`` batch on ``device``.  The
-    generator leaves the semantic/instance masks empty; here (test data,
-    not a feature of the port) a point inside GT box i
-    takes that box's class and instance id i + 1 (the first box in index
-    order wins; id 0 stays the unlabelled background), so the ScanNet vote
-    targets are not all empty."""
+    """B synthetic scenes as a ``forward_train`` batch on ``device``
+    (``yaw=True``: headed GT boxes, for SUN RGB-D).  The generator leaves
+    the semantic/instance masks empty; here (test data, not a feature of
+    the port) a point inside GT box i takes that box's class and instance
+    id i + 1 (the first box in index order wins; id 0 stays the unlabelled
+    background), so the ScanNet vote targets are not all empty."""
     import numpy as np
     import torch
-    from cagroup3d_tpu_torch.utils.synthetic import synthetic_batch
+    from cagroup3d_tpu_torch.utils.synthetic import (box_local_xy,
+                                                     synthetic_batch)
     b = synthetic_batch(np.random.RandomState(seed), batch_size=batch_size,
                         n_points=n_points, point_cap=n_points,
                         n_classes=n_classes, **kw)
@@ -400,7 +425,9 @@ def synthetic_train_batch(seed: int, device, batch_size: int,
         xyz = b["points"][s, :, :3]
         for i in np.nonzero(b["gt_valid"][s])[0][::-1]:
             box = b["gt_boxes"][s, i]
-            inside = np.all(np.abs(xyz - box[:3]) < box[3:6] / 2, axis=-1)
+            inside = np.all(np.abs(box_local_xy(xyz[:, :2], box)) <
+                            box[3:5] / 2, axis=-1)
+            inside &= np.abs(xyz[:, 2] - box[2]) < box[5] / 2
             inside &= b["points_valid"][s]
             b["semantic_mask"][s, inside] = int(box[7])
             b["instance_mask"][s, inside] = i + 1
@@ -562,9 +589,10 @@ def total(stats):
                 max_abs=max(f["max_abs"] for f in stats.values()))
 
 
-def phase_k3(model, dev, needed):
+def phase_k3(model, dev, needed, path):
     """Phase 8: record and replay every K1 and K3 call of one training
-    step of one full-width scene.  Returns (K1 totals, K3 totals)."""
+    step of one full-width scene of ``path`` (a ``Path``).  Returns (K1
+    totals, K3 totals)."""
     import torch
     import cagroup3d_tpu_torch.ops.sparse_conv as ops_sc
     from cagroup3d_tpu_torch.core import sparse_conv as core_conv
@@ -578,7 +606,7 @@ def phase_k3(model, dev, needed):
     ops_sc.sparse_conv_dw = recorder(sparse_conv_dw, dw_calls)
     try:
         t0 = time.time()
-        batch1 = synthetic_train_batch(10, dev, 1, N_POINTS)
+        batch1 = synthetic_train_batch(10, dev, 1, N_POINTS, **path.scene)
         loss, _, _ = model.forward_train(batch1,
                                          torch.Generator().manual_seed(0))
         loss.backward()
@@ -606,8 +634,8 @@ def phase_k3(model, dev, needed):
                       ("k1_feature_backward", dfe_stats),
                       ("k3_weight_backward", dw_stats)):
         for name, f in sorted(st_.items()):
-            emit({"phase": "k3", "kernel": kind, "form": name, **f,
-                  **against_before(kind, name, f)})
+            emit({"phase": "k3", "config": path.name, "kernel": kind,
+                  "form": name, **f, **path.against_before(kind, name, f)})
     bad = [k for st_ in (fwd_stats, dfe_stats, dw_stats)
            for k, f in st_.items() if not f["ok"]]
     missing = [p for p in needed if not any(n.startswith(p) for n in dw_stats)
@@ -616,7 +644,8 @@ def phase_k3(model, dev, needed):
         fail("k3", f"a training-step kernel call disagrees with its plain "
                    f"version or is unsorted ({bad}), or a form is missing "
                    f"({missing})")
-    emit({"phase": "k3", "ok": True, "step_seconds": round(step1_s, 3),
+    emit({"phase": "k3", "config": path.name, "ok": True,
+          "step_seconds": round(step1_s, 3),
           "k1_forward_calls": len(fwd_calls),
           "k1_backward_calls": len(dfe_calls), "k3_calls": len(dw_calls)})
     k1_train = total({**{"f" + k: v for k, v in fwd_stats.items()},
@@ -624,19 +653,21 @@ def phase_k3(model, dev, needed):
     return k1_train, total(dw_stats)
 
 
-def phase_train(model, dev, gpu, power, opt_cfg, n_points=N_POINTS):
-    """Phase 9: B-scene training steps at full width.  Returns the
-    launch counts of the timed steps."""
+def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
+    """Phase 9: B-scene training steps at full width (B and the optimizer
+    from the YAML).  Returns the launch counts of the timed steps."""
     import torch
     from cagroup3d_tpu_torch.ops.segsum import segment_sums
     from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_dw
     from cagroup3d_tpu_torch.parallel.mesh import make_train_step
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    opt_cfg = path.cfg.OPTIMIZATION
+    B = int(opt_cfg.BATCH_SIZE_PER_GPU)
     opt, _ = build_optimizer(model, opt_cfg, STEPS_PER_EPOCH)
     step = make_train_step(model, opt, torch.Generator().manual_seed(1),
                            device=dev)
-    batches = [synthetic_train_batch(20 + i, dev, TRAIN_B, n_points)
-               for i in range(TRAIN_STEPS + 1)]
+    batches = [synthetic_train_batch(20 + i, dev, B, n_points, **path.scene)
+               for i in range(path.train_steps + 1)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step(batches[0], 0.0)                                      # warm-up
     torch.cuda.synchronize()
@@ -678,25 +709,29 @@ def phase_train(model, dev, gpu, power, opt_cfg, n_points=N_POINTS):
     ok = (finite and grads_ok and changed["params"] > 0 and
           changed["buffers"] > 0 and train_launches["sparse_conv"] > 0 and
           train_launches["sparse_conv_dw"] > 0)
-    emit({"phase": "train", "ok": ok, "gpu": gpu, "power_limit": power,
-          "scenes_per_step": TRAIN_B, "points_per_scene": n_points,
-          "steps": TRAIN_STEPS, "ms_per_step": step_ms,
+    emit({"phase": "train", "config": path.name, "ok": ok, "gpu": gpu,
+          "power_limit": power, "scenes_per_step": B,
+          "points_per_scene": n_points,
+          "steps": path.train_steps, "ms_per_step": step_ms,
           "median_ms": sorted(step_ms)[len(step_ms) // 2],
           "peak_memory_gb": peak_gb, "losses": losses, "tb": tbs[-1],
           "grad_norm_by_module": {k: g_["sq"] ** 0.5
                                   for k, g_ in groups.items()},
           "zero_grad_params": {k: g_["zero"] for k, g_ in groups.items()},
           "changed": changed, "launches": train_launches})
+    if path.yaw and not all("rcnn_loss_iou" in t for t in tbs):
+        fail("train", "the yaw path's RoI IoU loss is missing")
     if not ok:
         fail("train", "non-finite loss or gradients, a module without "
                       "gradient, nothing updated, or K1/K3 not launched")
     return train_launches
 
 
-def phase_train_reference(dev, n_names):
+def phase_train_reference(dev, path):
     """Phase 10: the tiny training step on the card against the CPU."""
     import torch
-    ttc, _, _ = tiny_train_config()
+    ttc, names, _ = tiny_train_config(path.cfg_path)
+    n_names = len(names)
     cpu_m = build_model(ttc, n_names, "cpu", seed=1, train=True)
     with torch.no_grad():
         # zero votes: a voted point floors into its per-class voxel, and
@@ -705,7 +740,8 @@ def phase_train_reference(dev, n_names):
         # two devices would train on different class maps
         cpu_m.get_parameter("dense_head.offset_block.6.kernel").zero_()
     gpu_m = copy.deepcopy(cpu_m).to(dev)
-    tb_cpu = synthetic_train_batch(11, "cpu", 2, **TINY_TRAIN_SCENE)
+    tb_cpu = synthetic_train_batch(11, "cpu", 2, **path.scene,
+                                   **TINY_TRAIN_SCENE)
     res = {}
     for name_, m_, b_ in (("cpu", cpu_m, tb_cpu),
                           ("gpu", gpu_m, {k: v.to(dev) for k, v in
@@ -736,130 +772,110 @@ def phase_train_reference(dev, n_names):
                       max(TOL, 2 * noise["vector_rel"]))
         ok &= card["ok"]
         reports[pre] = card
-    emit({"phase": "train-reference", "ok": ok, "scenes": 2,
+    emit({"phase": "train-reference", "config": path.name, "ok": ok,
+          "scenes": 2,
           "loss_cpu": res["cpu"][0], "loss_gpu": res["gpu"][0],
           "loss_rel": loss_rel, "tb_cpu": res["cpu"][1],
           "tb_gpu": res["gpu"][1], "grads": reports})
     if not ok:
         fail("train-reference", "card and CPU training steps disagree")
-    return ttc, tb_cpu
+    return ttc, n_names, tb_cpu
 
 
-def phase_learn(dev, ttc, n_names, batch, opt_cfg):
+def phase_learn(dev, ttc, n_names, batch, path):
     """Phase 11: the tiny model's loss falls on one fixed batch."""
     import torch
     from cagroup3d_tpu_torch.parallel.mesh import make_train_step
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
     learn_m = build_model(ttc, n_names, "cpu", seed=1, train=True).to(dev)
-    lopt, _ = build_optimizer(learn_m, opt_cfg, STEPS_PER_EPOCH)
+    lopt, _ = build_optimizer(learn_m, path.cfg.OPTIMIZATION,
+                              STEPS_PER_EPOCH)
     lstep = make_train_step(learn_m, lopt, torch.Generator().manual_seed(0),
                             device=dev)
     lb = {k: v.to(dev) for k, v in batch.items()}
     curve = [float(lstep(lb, 0.0)[0]) for _ in range(LEARN_STEPS)]
     drop = 1.0 - curve[-1] / curve[0]
-    ok = all(c == c for c in curve) and drop >= LEARN_MARGIN
-    emit({"phase": "learn", "ok": ok, "steps": LEARN_STEPS, "losses": curve,
-          "drop": drop, "required_drop": LEARN_MARGIN})
+    margin = 0.9 * path.jax_learn_drop
+    ok = all(c == c for c in curve) and drop >= margin
+    emit({"phase": "learn", "config": path.name, "ok": ok,
+          "steps": LEARN_STEPS, "losses": curve, "drop": drop,
+          "required_drop": margin})
     if not ok:
         fail("learn", f"the loss fell by {drop:.3f}, less than nine tenths "
-                      f"of the JAX package's {JAX_LEARN_DROP}")
+                      f"of the JAX package's {path.jax_learn_drop}")
 
 
-def main():
+class Path:
+    """One configuration's main path: the YAML, its synthetic scenes
+    (class count, headed boxes for the yaw path), the timed training steps
+    and the JAX package's learn drop."""
+
+    def __init__(self, name, train_steps, jax_learn_drop):
+        from cagroup3d_tpu_torch.models import load_config
+        self.name, self.cfg_path = name, CFGS[name]
+        self.cfg = load_config(self.cfg_path)
+        self.n_cls = len(self.cfg.CLASS_NAMES)
+        self.yaw = bool(self.cfg.MODEL.DENSE_HEAD.WITH_YAW)
+        self.scene = dict(n_classes=self.n_cls, yaw=self.yaw)
+        self.train_steps, self.jax_learn_drop = train_steps, jax_learn_drop
+
+    def against_before(self, kind, name, f):
+        """The first designs' times were taken on the ScanNet path."""
+        return against_before(kind, name, f) if self.name == "scannet" \
+            else {}
+
+
+def phase_eval_kernels(model, dev, path):
+    """Phases 3-5: the warm-up request, recording every K1 and K2 call,
+    then each against its plain version.  Returns (K1 form stats, K1
+    totals, K2 stats)."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    sys.path.insert(0, HERE)
-    try:
-        from cagroup3d_tpu_torch.core import sparse_conv as core_conv
-        from cagroup3d_tpu_torch.core import voxelize as core_vox
-        from cagroup3d_tpu_torch.models import load_config, load_model_config
-        from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
-            bias_init_with_prob
-        from cagroup3d_tpu_torch.ops import build
-        from cagroup3d_tpu_torch.ops.segsum import (k2_plan, segment_sums,
-                                                    segment_sums_plain)
-        from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
-                                                         sparse_conv_plain)
-        from cagroup3d_tpu_torch.core.hashing import INVALID_KEY, pack_coords
-        from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable here: {e}",
-              file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    # 1. device ---------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
-    gpu = torch.cuda.get_device_name(0)
-    power = smi[0].split(",")[-1].strip() if smi else "unknown"
-    emit({"phase": "device", "ok": True, "gpu": gpu, "power_limit": power,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-
-    # 2. build ----------------------------------------------------------
-    t0 = time.time()
-    from concurrent.futures import ThreadPoolExecutor
-    names_cu = ("sparse_conv", "segsum")
-    with ThreadPoolExecutor(len(names_cu)) as ex:     # one nvcc per source
-        libs = dict(zip(names_cu, (os.path.relpath(p, HERE) for p in
-                                   ex.map(build.build, names_cu))))
-    for n in libs:
-        build.load(n)
-    ptxas = {n: [{"kernel": re.sub(r"^_ZN\w+?_cu_[0-9a-f]{8}\d+", "", k),
-                  "registers": r, "static_smem": m, "spill_bytes": sp}
-                 for k, r, m, sp in build.ptxas_report(n)] for n in libs}
-    emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
-          "libraries": libs, "ptxas": ptxas})
-
-    # 3. warm-up request, recording the kernels' main-path inputs ------
-    mc, names = load_model_config(CFG)
-    mc.INPUT_CAP = INPUT_CAP
-    mc.DENSE_HEAD.FINE_CAP = FINE_CAP
-    model = build_model(mc, len(names), dev, seed=0)
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.core import voxelize as core_vox
+    from cagroup3d_tpu_torch.core.hashing import INVALID_KEY, pack_coords
+    from cagroup3d_tpu_torch.ops.segsum import (k2_plan, segment_sums,
+                                                segment_sums_plain)
+    from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
+                                                     sparse_conv_plain)
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    tag = {"config": path.name}
     k1_calls, k2_calls = [], []
-
     core_conv.sparse_conv = recorder(sparse_conv, k1_calls)
     core_vox.segment_sums = recorder(segment_sums, k2_calls)
     try:
         t0 = time.time()
-        out = model.forward_eval(synthetic_request(0, dev, N_POINTS),
+        out = model.forward_eval(synthetic_request(0, dev, N_POINTS,
+                                                   **path.scene),
                                  cur_epoch=10)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
     finally:
         core_conv.sparse_conv = sparse_conv
         core_vox.segment_sums = segment_sums
-    emit({"phase": "warm-up", "ok": True, "seconds": round(warm_s, 3),
+    emit({"phase": "warm-up", **tag, "ok": True, "seconds": round(warm_s, 3),
           "k1_calls": len(k1_calls), "k2_calls": len(k2_calls),
           "overflow": int(out["overflow"].sum())})
 
-    # 4. K1 against its plain version at every recorded call ------------
+    # 4. K1 against its plain version at every recorded call
     forms = replay(k1_calls, [k1_form(i, k1_calls)
                               for i in range(len(k1_calls))],
                    sparse_conv, sparse_conv_plain, k1_info, 2,
                    library_conv_ms)
     for name, f in sorted(forms.items()):
-        emit({"phase": "k1", "form": name, **f,
-              **against_before("k1", name, f)})
+        emit({"phase": "k1", **tag, "form": name, **f,
+              **path.against_before("k1", name, f)})
     k1_ok = all(f["ok"] for f in forms.values())
-    k1_eval = total(forms)
-    needed = ("a_", "b_", "c_", "d_", "e_", "f_")
-    missing = [p for p in needed if not any(n.startswith(p) for n in forms)]
+    missing = [p for p in NEEDED if not any(n.startswith(p) for n in forms)]
     if missing or not k1_ok:
         fail("k1", f"K1 disagrees with its plain version, a source table "
                    f"is not key-sorted or a form is missing: "
                    f"missing={missing}")
 
-    # 5. K2 against its plain version --------------------------------------
+    # 5. K2 against its plain version: the recorded (overflowing) call and
+    # a non-overflowing one with the recorded call's groups and rows
     g = torch.Generator(device="cpu").manual_seed(0)
-    G, P, F = 18, 65536, 64
+    G, P = k2_calls[0][0][0].shape
+    F = 64
     lat = torch.randint(0, 15, (G, P, 3), generator=g, dtype=torch.int32)
     keys = pack_coords(lat, torch.rand(G, P, generator=g) < 0.9).to(dev)
     sk, _ = torch.sort(keys, dim=1, stable=True)
@@ -899,7 +915,7 @@ def main():
         rows_f = fs_.reshape(-1, Fk).float()
         lib_ms = time_ms(lambda: torch.zeros(
             Gk * (cap + 1), Fk, device=dev).index_add_(0, seg, rows_f), 10)
-        emit({"phase": "k2", "case": name, "ok": ok,
+        emit({"phase": "k2", **tag, "case": name, "ok": ok,
               "G": sk_.shape[0], "P": sk_.shape[1], "F": fs_.shape[2],
               "cap": cap, "max_unique_per_group": n_unique,
               "overflows": n_unique > cap, "counts_exact": counts_ok,
@@ -915,13 +931,21 @@ def main():
         if name == "main_path":
             k2_stats.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms)
+    return forms, total(forms), k2_stats
 
-    # 6. requests through the main path, counting launches ---------------
+
+def phase_requests(model, dev, gpu, power, path):
+    """Phase 6: launch counters reset, three 100k-point scenes through
+    ``forward_eval``.  Returns the launch counts."""
+    import torch
+    from cagroup3d_tpu_torch.ops.segsum import segment_sums
+    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
     sparse_conv.launches = 0
     segment_sums.launches = 0
     lat_ms, outs = [], []
     for seed in (0, 1, 2):
-        batch = synthetic_request(seed, dev, N_POINTS)
+        batch = synthetic_request(seed, dev, N_POINTS, **path.scene)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model.forward_eval(batch, cur_epoch=10)
@@ -941,74 +965,251 @@ def main():
     if min(launches.values()) <= 0:
         fail("requests", f"a kernel was not launched on the main path: "
                          f"{launches}")
-    emit({"phase": "requests", "ok": True, "gpu": gpu, "power_limit": power,
-          "scenes": 3, "points_per_scene": N_POINTS,
+    valid = [o["pred_valid"][0] for o in outs]
+    headings = [o["pred_boxes"][0, v, 6] for o, v in zip(outs, valid)]
+    emit({"phase": "requests", "config": path.name, "ok": True, "gpu": gpu,
+          "power_limit": power, "scenes": 3, "points_per_scene": N_POINTS,
           "ms_per_scene": lat_ms, "median_ms": sorted(lat_ms)[1],
           "launches": launches,
-          "detections": [int(o["pred_valid"].sum()) for o in outs],
+          "detections": [int(v.sum()) for v in valid],
+          "headed_detections": [int((h != 0).sum()) for h in headings],
           "overflow": [int(o["overflow"].sum()) for o in outs]})
+    if path.yaw and not any(int((h != 0).sum()) for h in headings):
+        fail("requests", "the yaw path returned no headed box")
+    return launches
 
-    # 7. reference: a tiny model on the card vs the same model on the CPU --
-    tc, _, _ = tiny_config()
-    cpu_model = build_model(tc, len(names), "cpu", seed=1)
+
+def agree(got, ref, exact, box_like):
+    """Card outputs against the CPU's: ``exact`` keys equal, the others'
+    largest error within 1e-2 (``box_like``) or 1e-3."""
+    res, ok = {}, True
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if k in exact:
+            res[k] = bool((g == r).all())
+            ok &= res[k]
+        else:
+            res[k] = float((g - r).abs().max())
+            ok &= res[k] < (1e-2 if k in box_like else 1e-3)
+    res["ok"] = ok
+    return res
+
+
+def reference_model(path, zero_votes=None, cos_code=None):
+    """Phase 7's tiny model on the CPU: on the yaw path (by default) zero
+    votes and a cos code of one (``phase_reference``)."""
+    import torch
+    tc, _, _ = tiny_config(path.cfg_path)
+    m = build_model(tc, path.n_cls, "cpu", seed=1)
+    with torch.no_grad():
+        if path.yaw if zero_votes is None else zero_votes:
+            m.get_parameter("dense_head.offset_block.6.kernel").zero_()
+        if path.yaw if cos_code is None else cos_code:
+            m.get_parameter("roi_head.reg_pred_layer.bias")[6] = 1.0
+    return m
+
+
+def phase_reference(dev, path, seed=3):
+    """Phase 7: a tiny model on the card against the same model on the
+    CPU, stage by stage on the same inputs, then the whole forward.
+
+    The untrained tiny model is ill-conditioned for a comparison of its
+    discrete steps: its candidate scores lie within an ulp of each other,
+    so one ulp of a sigmoid picks other proposals; its votes and rotated
+    RoI grid points floor into lattice cells, so one ulp moves a boundary
+    point into another cell; its RoI head's (cos, sin) heading codes are
+    round-off about zero, whose ``atan2`` is any angle.  So the yaw path
+    runs with zero votes, as in 10, and a cos code of one; the proposal
+    stage gets the CPU's head outputs with seeded N(0, 1) class and
+    centerness logits; the RoI stage counts the grid points that the
+    devices floor into different cells, holds the rois they do not
+    touch, and its final boxes when they touch none.  The whole forward
+    is held on ScanNet and printed on the yaw path (ROADMAP.md
+    section 3)."""
+    import torch
+    from cagroup3d_tpu_torch.core.module import flat_state
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    cpu_model = reference_model(path)
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    small = TINY_SCENE
-    ref = cpu_model.forward_eval(synthetic_request(3, "cpu", **small),
+    req = synthetic_request(seed, "cpu", **dict(TINY_SCENE, **path.scene))
+    keys = ("boxes", "scores", "labels", "valid")
+    run, stages, props, roi, cells = {}, {}, {}, {}, {}
+    with torch.no_grad():
+        for name, m, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+            P, S = flat_state(m)
+            ctx, _, _, _, feat, head, _ = m._forward_scene(
+                P, S, req["points"][0].to(d), req["points_valid"][0].to(d),
+                m.semantic_threshold(10))
+            run[name] = (m, d, P, S, ctx, feat, head)
+        head = run["cpu"][6]
+        stages["head"] = agree(run["gpu"][6], head,
+                               ("points", "points_valid", "semantic_points",
+                                "semantic_valid"),
+                               ("bbox_preds", "voxel_offsets"))
+        g = torch.Generator().manual_seed(0)
+        head = dict(head, **{k: torch.randn(head[k].shape, generator=g)
+                             for k in ("cls_scores", "centernesses")})
+        for name, (m, d, *_) in run.items():
+            props[name] = dict(zip(keys, m.dense_head.get_bboxes(
+                {k: v.to(d) for k, v in head.items()})))
+        stages["proposals"] = agree(props["gpu"], props["cpu"],
+                                    ("labels", "valid"), ("boxes",))
+        for name, (m, d, P, S, ctx, feat, _) in run.items():
+            rois = [props["cpu"][k].to(d) for k in keys]
+            roi[name] = m.roi_head(P, S, ctx, feat, *rois)
+            cells[name] = m.roi_head.grid_lattice(
+                m.roi_head.pcdet_rois(rois[0])).cpu()
+    apart = (cells["gpu"] != cells["cpu"]).any(-1).reshape(
+        len(props["cpu"]["valid"]), -1)
+    keep = props["cpu"]["valid"] & ~apart.any(1)
+    reg = roi.pop("gpu"), roi.pop("cpu")
+    final = agree({k: v for k, v in reg[0].items() if k != "rcnn_reg"},
+                  {k: v for k, v in reg[1].items() if k != "rcnn_reg"},
+                  ("batch_pred_valid", "batch_cls_preds"),
+                  ("batch_box_preds",))
+    stages["roi"] = dict(
+        grid_points_apart=int(apart.sum()), rois_touched=int(
+            apart.any(1).sum()), rois_compared=int(keep.sum()),
+        rcnn_reg_rel=rel_err(reg[0]["rcnn_reg"].cpu()[keep],
+                             reg[1]["rcnn_reg"][keep]), final=final)
+    stages["roi"]["ok"] = (stages["roi"]["rcnn_reg_rel"] < TOL and
+                           int(keep.sum()) > 0 and
+                           (final["ok"] or bool(apart.any())))
+    ref = cpu_model.forward_eval(req, cur_epoch=10)
+    got = gpu_model.forward_eval({k: v.to(dev) for k, v in req.items()},
                                  cur_epoch=10)
-    got = gpu_model.forward_eval(synthetic_request(3, dev, **small),
-                                 cur_epoch=10)
-    got = {k: v.cpu() for k, v in got.items()}
-    same_valid = bool((got["pred_valid"] == ref["pred_valid"]).all())
-    same_labels = bool((got["pred_labels"] == ref["pred_labels"]).all())
-    box_err = float((got["pred_boxes"] - ref["pred_boxes"]).abs().max())
-    score_err = float((got["pred_scores"] - ref["pred_scores"]).abs().max())
-    ok = same_valid and same_labels and box_err < 1e-2 and score_err < 1e-3
-    emit({"phase": "reference", "ok": ok, "detections":
-          int(ref["pred_valid"].sum()), "same_valid": same_valid,
-          "same_labels": same_labels, "max_box_err": box_err,
-          "max_score_err": score_err})
+    pred = ("pred_valid", "pred_labels", "pred_boxes", "pred_scores")
+    whole = agree({k: got[k] for k in pred}, {k: ref[k] for k in pred},
+                  pred[:2], pred[2:3])
+    ok = all(st["ok"] for st in stages.values()) and (
+        whole["ok"] or path.yaw)
+    emit({"phase": "reference", "config": path.name, "ok": ok,
+          "detections": int(ref["pred_valid"].sum()), "whole_forward": whole,
+          "whole_forward_held": not path.yaw, "stages": stages})
     if not ok or int(ref["pred_valid"].sum()) == 0:
         fail("reference", "card and CPU disagree on the tiny model")
 
-    # 8-11. the training step ------------------------------------------
-    full_cfg = load_config(CFG)
+
+def run_path(dev, gpu, power, path):
+    """Phases 3-11 on one configuration at full width.  Returns what the
+    ``kernels`` line needs."""
+    import torch
+    from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
+        bias_init_with_prob
+    mc = copy.deepcopy(path.cfg.MODEL)
+    mc.INPUT_CAP = INPUT_CAP
+    mc.DENSE_HEAD.FINE_CAP = FINE_CAP
+    model = build_model(mc, path.n_cls, dev, seed=0)
+    forms, k1_eval, k2_stats = phase_eval_kernels(model, dev, path)
+    eval_launches = phase_requests(model, dev, gpu, power, path)
+    phase_reference(dev, path)
+
+    # 8-11. the training step
     model.roi_gt_aug = 0.05        # see tiny_train_config
     with torch.no_grad():           # the prior back (see build_model)
         model.dense_head.cls_conv.bias.fill_(bias_init_with_prob(0.01))
     open_gate(model, train=True)
-    k1_train, k3_train = phase_k3(model, dev, needed)
-    train_launches = phase_train(model, dev, gpu, power, full_cfg.OPTIMIZATION)
-    ttc, tiny_batch = phase_train_reference(dev, len(names))
-    phase_learn(dev, ttc, len(names), tiny_batch, full_cfg.OPTIMIZATION)
+    k1_train, k3_train = phase_k3(model, dev, NEEDED, path)
+    train_launches = phase_train(model, dev, gpu, power, path)
+    del model
+    torch.cuda.empty_cache()
+    ttc, n_names, tiny_batch = phase_train_reference(dev, path)
+    phase_learn(dev, ttc, n_names, tiny_batch, path)
+    return dict(k1_eval=k1_eval, k1_eval_max_abs=max(
+        f["max_abs"] for f in forms.values()), k2=k2_stats,
+        eval_launches=eval_launches, k1_train=k1_train, k3_train=k3_train,
+        train_launches=train_launches)
 
-    emit({"kernels": [
-        {"name": "K1 sparse_conv", "route": "cuda",
-         "source": "cagroup3d_tpu_torch/csrc/sparse_conv.cu",
-         "replaces": "cagroup3d_tpu/ops/pallas_conv.py:124",
-         "launches": train_launches["sparse_conv"],
-         "max_abs_err": max(k1_train["max_abs"],
-                            max(f["max_abs"] for f in forms.values())),
-         "ms": k1_train["ms"], "plain_ms": k1_train["plain_ms"],
-         "bound_ms": k1_train["bound_ms"], "bound_by": k1_train["bound_by"],
-         "library_ms": k1_train["library_ms"], "eval_ms": k1_eval["ms"],
-         "eval_bound_ms": k1_eval["bound_ms"],
-         "eval_library_ms": k1_eval["library_ms"]},
-        {"name": "K2 segsum", "route": "cuda",
-         "source": "cagroup3d_tpu_torch/csrc/segsum.cu",
-         "replaces": "cagroup3d_tpu/ops/pallas_segsum.py:64",
-         "launches": launches["segsum"],
-         "max_abs_err": k2_stats["max_abs"], "ms": k2_stats["ms"],
-         "plain_ms": k2_stats["plain_ms"], "bound_ms": k2_stats["bound_ms"],
-         "bound_by": k2_stats["bound_by"],
-         "library_ms": k2_stats["library_ms"]},
-        {"name": "K3 sparse_conv_dw", "route": "cuda",
-         "source": "cagroup3d_tpu_torch/csrc/sparse_conv.cu",
-         "replaces": "cagroup3d_tpu/ops/pallas_conv.py:472",
-         "launches": train_launches["sparse_conv_dw"],
-         "max_abs_err": k3_train["max_abs"], "ms": k3_train["ms"],
-         "plain_ms": k3_train["plain_ms"], "bound_ms": k3_train["bound_ms"],
-         "bound_by": k3_train["bound_by"],
-         "library_ms": k3_train["library_ms"]}]})
+
+def kernel_line(res):
+    """The ``kernels`` line: each kernel's launches summed over the paths'
+    main-path runs (K1, K3: the timed training steps; K2: the requests),
+    its largest error over every replay, and its times from the ScanNet
+    path, with each path's own beside them."""
+    def times(st):
+        return {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}
+
+    def k1(r):
+        return dict(times(r["k1_train"]), eval_ms=r["k1_eval"]["ms"],
+                    eval_bound_ms=r["k1_eval"]["bound_ms"],
+                    eval_library_ms=r["k1_eval"]["library_ms"],
+                    launches=r["train_launches"]["sparse_conv"])
+
+    def k2(r):
+        return dict(times(r["k2"]), launches=r["eval_launches"]["segsum"])
+
+    def k3(r):
+        return dict(times(r["k3_train"]),
+                    launches=r["train_launches"]["sparse_conv_dw"])
+
+    out = []
+    for name, fn, src, line, err in (
+            ("K1 sparse_conv", k1, "sparse_conv.cu", "pallas_conv.py:124",
+             lambda r: max(r["k1_train"]["max_abs"], r["k1_eval_max_abs"])),
+            ("K2 segsum", k2, "segsum.cu", "pallas_segsum.py:64",
+             lambda r: r["k2"]["max_abs"]),
+            ("K3 sparse_conv_dw", k3, "sparse_conv.cu", "pallas_conv.py:472",
+             lambda r: r["k3_train"]["max_abs"])):
+        paths = {p: fn(r) for p, r in res.items()}
+        out.append({"name": name, "route": "cuda",
+                    "source": "cagroup3d_tpu_torch/csrc/" + src,
+                    "replaces": "cagroup3d_tpu/ops/" + line,
+                    **paths["scannet"],
+                    "launches": sum(v["launches"] for v in paths.values()),
+                    "max_abs_err": max(err(r) for r in res.values()),
+                    "paths": paths})
+    return {"kernels": out}
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        from cagroup3d_tpu_torch.ops import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # 1. device ---------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    gpu = torch.cuda.get_device_name(0)
+    power = smi[0].split(",")[-1].strip() if smi else "unknown"
+    emit({"phase": "device", "ok": True, "gpu": gpu, "power_limit": power,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # 2. build ----------------------------------------------------------
+    t0 = time.time()
+    from concurrent.futures import ThreadPoolExecutor
+    names_cu = ("sparse_conv", "segsum")
+    with ThreadPoolExecutor(len(names_cu)) as ex:     # one nvcc per source
+        libs = dict(zip(names_cu, (os.path.relpath(p, HERE) for p in
+                                   ex.map(build.build, names_cu))))
+    for n in libs:
+        build.load(n)
+    ptxas = {n: [{"kernel": re.sub(r"^_ZN\w+?_cu_[0-9a-f]{8}\d+", "", k),
+                  "registers": r, "static_smem": m, "spill_bytes": sp}
+                 for k, r, m, sp in build.ptxas_report(n)] for n in libs}
+    emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
+          "libraries": libs, "ptxas": ptxas})
+
+    # 3-11 on each configuration ------------------------------------------
+    res = {}
+    for path in (Path("scannet", TRAIN_STEPS, JAX_LEARN_DROP),
+                 Path("sunrgbd", TRAIN_STEPS_YAW, JAX_LEARN_DROP_YAW)):
+        res[path.name] = run_path(dev, gpu, power, path)
+    emit(kernel_line(res))
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -3,12 +3,14 @@
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 profile_port.py [--scenes 9] [--out chiprun_out/profile.json]
+    python3 profile_port.py [--config scannet|sunrgbd] [--scenes 9]
+        [--out profile.json]
 
-It builds the configuration of ``chip_smoke.py`` (full-width ScanNet
-CAGroup3D, INPUT_CAP 65536, FINE_CAP 4096, seeded init, semantic gate
-open, class prior lifted), answers three warm-up 100k-point scenes
-(synthetic seeds 0-2), then measures, one JSON line per phase:
+It builds the configuration of ``chip_smoke.py`` (full-width CAGroup3D of
+the ``--config`` YAML -- ScanNet, or SUN RGB-D on headed scenes --,
+INPUT_CAP 65536, FINE_CAP 4096, seeded init, semantic gate open, class
+prior lifted), answers three warm-up 100k-point scenes (synthetic seeds
+0-2), then measures, one JSON line per phase:
 
 1. wall    -- ``forward_eval`` over ``--scenes`` scenes (seeds 0, 1, 2
    cycling), host clock around a synchronized call: ms per scene.
@@ -23,8 +25,9 @@ open, class prior lifted), answers three warm-up 100k-point scenes
    share = kernel ms per
    scene / median wall ms of phase 1 (one stream, so kernels do not
    overlap).  Also the peak device memory of the run.
-4. train   -- the training step of ``chip_smoke.py`` phase 9 (B = 4
-   full-width scenes, AdamW): after one warm-up step, the host-clock ms of
+4. train   -- the training step of ``chip_smoke.py`` phase 9 (the YAML's
+   BATCH_SIZE_PER_GPU full-width scenes, AdamW): after one warm-up step,
+   the host-clock ms of
    ``--train-steps`` steps split into forward (``forward_train`` with the
    losses), ``backward()`` and the optimizer update, each bracketed by
    synchronizations; then ``torch.profiler`` over one step: kernel ms and
@@ -75,6 +78,8 @@ def timed(fn, name, times):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("scannet", "sunrgbd"),
+                    default="scannet")
     ap.add_argument("--scenes", type=int, default=9)
     ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--out", default=None,
@@ -87,8 +92,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import CFG, FINE_CAP, INPUT_CAP, N_POINTS, build_model
-    from cagroup3d_tpu_torch.models import load_model_config
+    from chip_smoke import CFGS, FINE_CAP, INPUT_CAP, N_POINTS, build_model
+    from cagroup3d_tpu_torch.models import load_config
     from cagroup3d_tpu_torch.models.dense_heads import cagroup_head
     from cagroup3d_tpu_torch.models.roi_heads import cagroup_roi_head
     from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
@@ -104,11 +109,15 @@ def main():
     card = dict(gpu=torch.cuda.get_device_name(0),
                 power_limit=smi[0].split(",")[-1].strip() if smi else None)
 
-    mc, names = load_model_config(CFG)
+    cfg = load_config(CFGS[args.config])
+    mc, names = cfg.MODEL, cfg.CLASS_NAMES
     mc.INPUT_CAP = INPUT_CAP
     mc.DENSE_HEAD.FINE_CAP = FINE_CAP
     model = build_model(mc, len(names), dev, seed=0)
-    batches = [synthetic_request(s, dev, N_POINTS) for s in (0, 1, 2)]
+    scene = dict(n_classes=len(names), yaw=bool(mc.DENSE_HEAD.WITH_YAW))
+    card["config"] = args.config
+    batches = [synthetic_request(s, dev, N_POINTS, **scene)
+               for s in (0, 1, 2)]
     for b in batches:                                   # warm-up
         model.forward_eval(b, cur_epoch=10)
     torch.cuda.synchronize()
@@ -186,9 +195,7 @@ def main():
           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
 
     # 4. train -------------------------------------------------------------
-    from chip_smoke import (STEPS_PER_EPOCH, TRAIN_B, open_gate,
-                            synthetic_train_batch)
-    from cagroup3d_tpu_torch.models import load_config
+    from chip_smoke import STEPS_PER_EPOCH, open_gate, synthetic_train_batch
     from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
         bias_init_with_prob
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
@@ -196,10 +203,10 @@ def main():
         model.dense_head.cls_conv.bias.fill_(bias_init_with_prob(0.01))
     open_gate(model, train=True)
     model.roi_gt_aug = 0.05
-    opt, _ = build_optimizer(model, load_config(CFG).OPTIMIZATION,
-                             STEPS_PER_EPOCH)
+    opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH)
     gen = torch.Generator().manual_seed(1)
-    tb = [synthetic_train_batch(20 + i, dev, TRAIN_B, N_POINTS)
+    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tb = [synthetic_train_batch(20 + i, dev, B, N_POINTS, **scene)
           for i in range(2)]
     split = defaultdict(list)
 
@@ -242,7 +249,7 @@ def main():
         m = re.search(K3_NAME + r"(\w+)", n)
         if m:
             k3_pass[m.group(1)] += v[0]
-    emit({"phase": "train", **card, "scenes_per_step": TRAIN_B,
+    emit({"phase": "train", **card, "scenes_per_step": B,
           "steps": args.train_steps,
           "median_ms": {k: statistics.median(v) for k, v in split.items()},
           "kernel_ms_per_step": total_ms if kernels else "not measured",

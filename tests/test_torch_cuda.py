@@ -79,7 +79,9 @@ def _tables(seed, G, P, C, cap, side, dev, wrap=False, flat=False):
 # (the tiles' key windows hold
 # sources, but every plane of every tile is empty); "wrap": lattice z at
 # both ends of the key's z field, so a neighbour below z 0 would alias the
-# top voxel of the previous y column.
+# top voxel of the previous y column.  The SUN RGB-D head adds Cout 192
+# (three 64-column tiles, split offsets and, at 17000 rows, one map for
+# all three) and 10 per-class groups.
 K1_CASES = [
     (3, 1, 1, 3, 64, False, 512, ""), (3, 1, 1, 64, 128, True, 512, ""),
     (5, 3, 3, 64, 64, False, 512, ""), (9, 3, 1, 64, 64, False, 512, ""),
@@ -92,7 +94,10 @@ K1_CASES = [
     (3, 1, 1, 3, 64, False, 17000, ""), (5, 1, 1, 64, 128, True, 17000, ""),
     (3, 1, 1, 64, 64, True, 512, "empty"), (5, 1, 1, 64, 64, True, 512, "far"),
     (3, 1, 1, 64, 64, False, 512, "wrap"),
-    (5, 1, 1, 16, 64, False, 512, "wrap")]
+    (5, 1, 1, 16, 64, False, 512, "wrap"),
+    (3, 1, 1, 64, 192, False, 512, ""), (3, 1, 1, 64, 192, False, 17000, ""),
+    (3, 1, 1, 192, 64, False, 512, ""), (9, 10, 10, 64, 64, False, 1024, ""),
+    (5, 10, 10, 64, 64, False, 1024, "")]
 
 
 @pytest.mark.parametrize("k,G,Gw,C,Cout,query,cap,kind", K1_CASES)
@@ -128,11 +133,13 @@ def _segsum_case(case, dev):
     """(sorted keys, bf16 rows, cap) of a K2 case.  "rand": random
     lattices over ``side``; "runs": explicit run lengths, runs spanning
     two and three 1024-row tiles, P not a multiple of the tile, and an
-    all-invalid group."""
+    all-invalid group; "classes": the SUN RGB-D head's per-class maps, 10
+    groups of 4 x 8192 rows (three votes and the voxel per row of the
+    stride-2 map)."""
     kind, side, cap, F = case
     g = torch.Generator().manual_seed(side + cap + F)
-    if kind == "rand":
-        G, P = 4, 8192
+    if kind in ("rand", "classes"):
+        G, P = (4, 8192) if kind == "rand" else (10, 4 * 8192)
         lat = torch.randint(0, side, (G, P, 3), generator=g, dtype=torch.int32)
         keys = pack_coords(lat, torch.rand(G, P, generator=g) < 0.8)
         sk, _ = torch.sort(keys, dim=1, stable=True)
@@ -153,7 +160,8 @@ def _segsum_case(case, dev):
 K2_CASES = [("rand", 12, 64, 64), ("rand", 5, 256, 64), ("rand", 40, 4096, 64),
             ("rand", 12, 64, 16), ("rand", 40, 4096, 256),
             ("rand", 12, 300, 20), ("runs", 0, 3, 64), ("runs", 0, 5, 64),
-            ("runs", 0, 8, 256), ("runs", 0, 5, 20)]
+            ("runs", 0, 8, 256), ("runs", 0, 5, 20),
+            ("classes", 40, 4096, 64), ("classes", 20, 4096, 64)]
 
 
 @pytest.mark.parametrize("case", K2_CASES)
@@ -177,14 +185,18 @@ def test_segment_sums_kernel(dev, case):
 # weight groups shared by several groups (Gw < G); then K3's edges: "flat"
 # (one z plane: offsets with no pair), "dead" (group 1 all invalid), "big"
 # (17000 rows: a (group, offset) list spans several pair splits), C 20
-# and 16 (not multiples of 64; 20 not of 16), Cout 128 and 512.
+# and 16 (not multiples of 64; 20 not of 16), Cout 128 and 512; the SUN
+# RGB-D head's Cout 192 (a full and a half-full 128-column tile; "big":
+# split pair lists) and 10 per-class groups.
 BWD_FORMS = [(3, 1, 1, 3, 64, False, ""), (3, 1, 1, 512, 512, False, ""),
              (3, 1, 1, 64, 128, True, ""), (3, 1, 1, 64, 64, False, ""),
              (9, 3, 3, 64, 64, False, ""), (5, 3, 3, 64, 64, False, ""),
              (5, 1, 1, 64, 128, True, ""), (5, 3, 1, 32, 64, False, ""),
              (5, 1, 1, 64, 64, False, "flat"), (3, 3, 3, 64, 64, False, "dead"),
              (9, 3, 1, 16, 128, False, "dead"), (3, 1, 1, 64, 64, False, "big"),
-             (3, 1, 1, 20, 64, False, ""), (3, 1, 1, 16, 512, True, "")]
+             (3, 1, 1, 20, 64, False, ""), (3, 1, 1, 16, 512, True, ""),
+             (3, 1, 1, 64, 192, False, ""), (3, 1, 1, 64, 192, False, "big"),
+             (9, 10, 10, 64, 64, False, ""), (5, 10, 10, 64, 64, False, "")]
 
 
 def _bwd_case(dev, k, G, Gw, C, Cout, query, kind):

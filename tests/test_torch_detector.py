@@ -256,8 +256,9 @@ def test_main_path_sources_are_key_sorted(setup, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """The port's tiny eval forward and one tiny training step run in a
-    process where jax and the JAX package are blocked."""
+    """The port's tiny eval forward and one tiny training step, ScanNet and
+    SUN RGB-D (the yaw path, headed GT boxes), run in a process where jax
+    and the JAX package are blocked."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['cagroup3d_tpu'] = None\n"
@@ -269,29 +270,34 @@ def test_port_imports_no_jax():
         "build_optimizer\n"
         "from cagroup3d_tpu_torch.utils.synthetic import synthetic_batch\n"
         "from chip_smoke import synthetic_train_batch\n"
-        "cfg = load_config('tools/cfgs/scannet_models/CAGroup3D.yaml')\n"
-        "mc, names = cfg.MODEL, cfg.CLASS_NAMES\n"
-        "mc.BACKBONE_3D.update(CAPS={1: 1024, 2: 1024, 4: 512, 8: 256, "
+        "for name in ('scannet', 'sunrgbd'):\n"
+        "    cfg = load_config(f'tools/cfgs/{name}_models/CAGroup3D.yaml')\n"
+        "    mc, names = cfg.MODEL, cfg.CLASS_NAMES\n"
+        "    yaw = bool(mc.DENSE_HEAD.WITH_YAW)\n"
+        "    mc.BACKBONE_3D.update(CAPS={1: 1024, 2: 1024, 4: 512, 8: 256, "
         "16: 128, 32: 64, 64: 16, 128: 8, 256: 8, 512: 8}, PLANES=8, "
         "SPP_PLANES=8, OUT_CHANNELS=8)\n"
-        "mc.INPUT_CAP = 1024\n"
-        "mc.DENSE_HEAD.update(OUT_CHANNELS=8, CLS_KERNEL=3, FINE_CAP=256, "
+        "    mc.INPUT_CAP = 1024\n"
+        "    mc.DENSE_HEAD.update(OUT_CHANNELS=8, CLS_KERNEL=3, FINE_CAP=256, "
         "EXPAND_CAP=128, MAX_ROIS=16, NMS_PER_CLS_CAP=16)\n"
-        "mc.DENSE_HEAD.NMS_CONFIG.NMS_PRE = 64\n"
-        "mc.ROI_HEAD.update(MLPS=[[8, 16, 16]], REG_FC=[16, 16], "
+        "    mc.DENSE_HEAD.NMS_CONFIG.NMS_PRE = 64\n"
+        "    mc.ROI_HEAD.update(MLPS=[[8, 16, 16]], REG_FC=[16, 16], "
         "GRID_CAP=512, NMS_PER_CLS_CAP=16, MAX_OUT=16, ROI_PER_IMAGE=8)\n"
-        "m = build_network(mc, len(names), device='cpu')\n"
-        "b = synthetic_batch(np.random.RandomState(0), batch_size=1, "
-        "n_points=1000, point_cap=1024, room=(3., 3., 2.5), n_objects=4)\n"
-        "out = m.forward_eval({k: torch.from_numpy(b[k]) for k in "
+        "    m = build_network(mc, len(names), device='cpu')\n"
+        "    b = synthetic_batch(np.random.RandomState(0), batch_size=1, "
+        "n_points=1000, point_cap=1024, room=(3., 3., 2.5), n_objects=4, "
+        "n_classes=len(names), yaw=yaw)\n"
+        "    out = m.forward_eval({k: torch.from_numpy(b[k]) for k in "
         "('points', 'points_valid')})\n"
-        "assert torch.isfinite(out['pred_boxes']).all()\n"
-        "opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 10)\n"
-        "step = make_train_step(m, opt, device='cpu')\n"
-        "tb = step(synthetic_train_batch(0, 'cpu', 1, n_points=1000, "
-        "room=(3., 3., 2.5), n_objects=4))[1]\n"
-        "assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
-        "assert opt.count == 1\n"
+        "    assert torch.isfinite(out['pred_boxes']).all()\n"
+        "    opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 10)\n"
+        "    step = make_train_step(m, opt, device='cpu')\n"
+        "    tb = step(synthetic_train_batch(0, 'cpu', 1, n_points=1000, "
+        "room=(3., 3., 2.5), n_objects=4, n_classes=len(names), "
+        "yaw=yaw))[1]\n"
+        "    assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
+        "    assert ('rcnn_loss_iou' in tb) == yaw, tb\n"
+        "    assert opt.count == 1\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")

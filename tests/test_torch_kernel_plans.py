@@ -10,7 +10,11 @@ ScanNet model -- the 16 distinct shapes of the 39 K1 calls of the eval
 forward and of a training step's forward, and the 15 of the 38 feature
 backward calls (K1 on the transposed problem) -- the blocks must cover
 each (query, column, offset) exactly once, and the offsets must split
-wherever the grid would be under two waves of the card's SMs.
+wherever the grid would be under two waves of the card's SMs.  The
+full-width SUN RGB-D model (the yaw path) adds its head's shapes: the
+3-vote ``feature_offset`` k3 at Cout 192 (three 64-column tiles for K1, a
+128-column and a half-full 128-column tile for K3) and the per-class k9 and
+k5 convs at 10 classes.
 
 K3 (``spconv_k3_gemm``) reads its plan as a grid of (C tile x Cout tile,
 pair split, group x offset): at the 16 distinct shapes of the 39 K3 calls
@@ -50,8 +54,15 @@ FEATURE_BACKWARD = [
     ("b", 1, 65536, 64, 64, 3),
     ("c", 1, 32768, 64, 64, 3), ("d", 18, 4096, 64, 64, 9),
     ("e", 18, 2048, 64, 64, 5), ("f", 1, 32768, 128, 64, 5)]
-SHAPES = [("fwd",) + s for s in FORWARD] + \
-    [("bwd",) + s for s in FEATURE_BACKWARD]
+# the SUN RGB-D head's K1 launches (the backbone and the RoI grid conv have
+# ScanNet's shapes): forward, then the feature backward
+SUNRGBD_FORWARD = [("c", 1, 32768, 64, 192, 3), ("d", 10, 4096, 64, 64, 9),
+                   ("e", 10, 2048, 64, 64, 5)]
+SUNRGBD_FEATURE_BACKWARD = [("c", 1, 32768, 192, 64, 3),
+                            ("d", 10, 4096, 64, 64, 9),
+                            ("e", 10, 2048, 64, 64, 5)]
+SHAPES = [("fwd",) + s for s in FORWARD + SUNRGBD_FORWARD] + \
+    [("bwd",) + s for s in FEATURE_BACKWARD + SUNRGBD_FEATURE_BACKWARD]
 IDS = [f"{d}-{f}-G{G}-NQ{NQ}-{C}x{Cout}-k{K}"
        for d, f, G, NQ, C, Cout, K in SHAPES]
 
@@ -123,7 +134,10 @@ K3_SHAPES = [
     ("b", 1, 65536, 32768, 64, 64, 3, 1),
     ("c", 1, 32768, 32768, 64, 64, 3, 1),
     ("d", 18, 4096, 4096, 64, 64, 9, 18), ("e", 18, 2048, 2048, 64, 64, 5, 18),
-    ("f", 1, 32768, 16384, 64, 128, 5, 1)]
+    ("f", 1, 32768, 16384, 64, 128, 5, 1),
+    # SUN RGB-D's head: feature_offset at Cout 192, 10 classes
+    ("c", 1, 32768, 32768, 64, 192, 3, 1),
+    ("d", 10, 4096, 4096, 64, 64, 9, 10), ("e", 10, 2048, 2048, 64, 64, 5, 10)]
 K3_IDS = [f"{f}-G{G}-N{N}-NQ{NQ}-{C}x{Cout}-k{K}"
           for f, G, N, NQ, C, Cout, K, _ in K3_SHAPES]
 

@@ -260,8 +260,20 @@ def test_losses():
         (pv, jv), (pg, jg) = _grad_pair(jfn, pfn, *arrays)
         assert _rel(pv, jv) < 1e-5
         assert _rel(pg, jg) < 1e-5
-    with pytest.raises(NotImplementedError, match="SUN RGB-D"):
-        L.iou3d_loss(_t(box), _t(box2), with_yaw=True)
+    # the rotated IoU loss (SUN RGB-D): headed boxes near their targets
+    yawed = box.copy()
+    yawed[:, 6] = rs.rand(30) * 4 * np.pi - 2 * np.pi
+    yawed2 = yawed + rs.randn(30, 7).astype(np.float32) * 0.1
+    w = rs.rand(30).astype(np.float32)
+    jv, jg = jax.jit(jax.value_and_grad(
+        lambda p, t: JL.iou3d_loss(p, t, jnp.asarray(w), avg_factor=2.0,
+                                   with_yaw=True)))(jnp.asarray(yawed),
+                                                    jnp.asarray(yawed2))
+    x = _t(yawed).requires_grad_(True)
+    pv = L.iou3d_loss(x, _t(yawed2), _t(w), avg_factor=2.0, with_yaw=True)
+    pv.backward()
+    assert _rel(pv, jv) < 1e-5
+    assert _rel(x.grad, jg) < 1e-5
 
 
 # ------------------------------------------------ assigner, vote targets
@@ -378,11 +390,18 @@ def test_proposal_target_layer(case):
         *(jnp.asarray(a) for a in (rois, rlab, rvalid, gt, glab, gvalid)))[0],
         jnp.asarray(rvalid))
     _eq(got["sampled"], jsel)
-    yawed = gt.copy()
-    yawed[0, 6] = 0.3
-    with pytest.raises(NotImplementedError, match="SUN RGB-D"):
-        ptl(None, _t(rois), _t(scores), _t(rlab), _t(rvalid), _t(yawed),
-            _t(glab), _t(gvalid), draws=_jax_draws(rng, R, 16))
+    # headed GT and rois (SUN RGB-D): the rotated 3D IoU matches them
+    yawed, yrois = gt.copy(), rois.copy()
+    yawed[:, 6] = rs.rand(G) * 2 * np.pi
+    yrois[:, 6] = -yawed[src, 6] + rs.randn(R).astype(np.float32) * 0.2
+    ref = jptl(rng, *(jnp.asarray(a) for a in (yrois, scores, rlab, rvalid,
+                                               yawed, glab, gvalid)))
+    got = ptl(None, _t(yrois), _t(scores), _t(rlab), _t(rvalid), _t(yawed),
+              _t(glab), _t(gvalid), draws=_jax_draws(rng, R, 16))
+    for k in ("rois", "gt_of_rois", "gt_iou_of_rois", "reg_valid_mask",
+              "rcnn_cls_labels"):
+        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 # ------------------------------------------------ optimizer and schedule
