@@ -1,1 +1,2 @@
-"""Training: optimizer and schedule, checkpoints, the training loop."""
+"""Training: optimizer and schedule, checkpoints, the training loop, the
+eval harness."""

@@ -1,1 +1,1 @@
-"""Utilities: synthetic scenes as tensors."""
+"""Utilities: synthetic scenes and dataset trees, the CLI logger."""

@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA GPU:
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits 1 without the final line.
-Phases 3-11 run once per configuration (``Path``): first
+Phases 3-11 (7b among them) run once per configuration (``Path``): first
 tools/cfgs/scannet_models/CAGroup3D.yaml, then
 tools/cfgs/sunrgbd_models/CAGroup3D.yaml (10 classes, three votes per
 voxel, headed boxes, rotated NMS and IoU losses) on synthetic scenes with
@@ -53,6 +53,21 @@ after it.
    rotated grid cells the devices floor apart counted), then the whole
    forward, held on ScanNet and printed on the yaw path
    (``phase_reference``).
+7b. test-cli -- the eval entry point: a synthetic tree of eight 100k-point
+   scenes (``write_indoor_tree``; ScanNet points in a raw frame under a
+   z-rotated, translated axis-align matrix, SUN RGB-D headed boxes), a
+   checkpoint of the YAML's full-width model (seeded, gate open and prior
+   lifted as in 6) saved with ``save_checkpoint``, and the ``test`` CLI
+   (``cagroup3d_tpu_torch.tools.test``) run in-process over it at batch 1:
+   result.pkl holds every scene; ``forward_eval``'s inputs equal the
+   loader's batches bitwise on the card and result.pkl equals its outputs
+   unpadded by ``pred_valid`` bitwise; every loaded GT box holds the points
+   the writer counted in it in the aligned frame; the GT as predictions
+   scores mAP and mAR 1.0, shifted past each box's BEV diagonal 0.0; the
+   model's mAP and mAR are finite in [0, 1] for every class of the tree;
+   K1 and K2 launched.  It prints the harness's ms/scene, the loader's
+   share and whether two direct calls give the same bits
+   (``phase_test_cli``).
 8. k3      -- one full-width training step of one scene (forward, losses,
    ``backward()``), recording every K1 call (forward and feature backward)
    and every K3 call; each against its plain version on the same inputs,
@@ -105,6 +120,7 @@ CFG = CFGS["scannet"]
 INPUT_CAP, FINE_CAP, N_POINTS = 65536, 4096, 100_000
 TOL, ROW_TOL = 2e-2, 1e-3
 TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 3, 2, 30
+TEST_CLI_SCENES = 8
 NEEDED = ("a_", "b_", "c_", "d_", "e_", "f_")    # the main-path forms
 STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
 # the drop, 1 - last / first loss, that the JAX package's step makes on
@@ -375,7 +391,13 @@ def tiny_config(seed_cfg=CFG):
     caps): (model_cfg, class_names, full config)."""
     from cagroup3d_tpu_torch.models import load_config
     cfg = load_config(seed_cfg)
-    tc = cfg.MODEL
+    tiny_model(cfg.MODEL)
+    return cfg.MODEL, list(cfg.CLASS_NAMES), cfg
+
+
+def tiny_model(tc):
+    """Set a model configuration's widths and caps to the tiny ones, in
+    place."""
     tc.BACKBONE_3D.update(CAPS={1: 2048, 2: 2048, 4: 1024, 8: 512, 16: 256,
                                 32: 128, 64: 32, 128: 16, 256: 8, 512: 8},
                           PLANES=16, SPP_PLANES=16, OUT_CHANNELS=16)
@@ -385,7 +407,6 @@ def tiny_config(seed_cfg=CFG):
     tc.DENSE_HEAD.NMS_CONFIG.NMS_PRE = 256
     tc.ROI_HEAD.update(MLPS=[[16, 32, 32]], REG_FC=[32, 32], GRID_CAP=2048,
                        NMS_PER_CLS_CAP=32, MAX_OUT=32)
-    return tc, list(cfg.CLASS_NAMES), cfg
 
 
 def tiny_train_config(seed_cfg=CFG):
@@ -1090,8 +1111,203 @@ def phase_reference(dev, path, seed=3):
         fail("reference", "card and CPU disagree on the tiny model")
 
 
+def phase_test_cli(dev, gpu, power, path):
+    """Phase 7b: the ``test`` CLI (``cagroup3d_tpu_torch.tools.test``) in
+    this process on a synthetic tree of TEST_CLI_SCENES 100k-point scenes
+    (``write_indoor_tree``: ScanNet points in a raw frame with a z rotation
+    and translation as each scene's axis-align matrix, SUN RGB-D headed
+    boxes), evaluating a checkpoint of the YAML's full-width model as
+    users build it (seeded, gate open and class prior lifted as in
+    ``build_model``), at batch 1.  Held: result.pkl has every scene;
+    ``forward_eval``'s recorded inputs equal the loader's batches bitwise,
+    on the card, and each scene's boxes, scores and labels in result.pkl
+    equal that call's outputs unpadded by ``pred_valid`` bitwise; every
+    loaded GT box holds the points the writer counted in it in the
+    aligned frame; the GT as predictions scores mAP and mAR 1.0 at both
+    thresholds, and 0.0 with every box moved along x past its BEV diagonal
+    (plus 10 m); the model's mAP and mAR finite in [0, 1] for every class
+    of the tree; K1 and K2 launched.  Printed only: whether two direct
+    calls on one batch give the same bits (``profile_port.py``'s ``bits``
+    phase finds the first op apart)."""
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.models.detectors.cagroup3d import CAGroup3D
+    from cagroup3d_tpu_torch.ops.segsum import segment_sums
+    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv
+    from cagroup3d_tpu_torch.tools import test as cli
+    from cagroup3d_tpu_torch.training.checkpoint import save_checkpoint
+    from cagroup3d_tpu_torch.utils.synthetic import (points_in_boxes,
+                                                     write_indoor_tree)
+    names = list(path.cfg.CLASS_NAMES)
+    calls, batches, loaders, harness_s = [], [], [], []
+    forward, build_loader, evaluate = (CAGroup3D.forward_eval,
+                                       cli.build_dataloader,
+                                       cli.eval_one_epoch)
+
+    def recorded(self, batch, cur_epoch=None):
+        t0 = time.perf_counter()
+        out = forward(self, batch, cur_epoch=cur_epoch)
+        torch.cuda.synchronize()
+        calls.append((self, dict(batch), dict(out),
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+
+    class Recording:
+        """The CLI's loader, keeping each batch and the time the harness
+        waits for it."""
+
+        def __init__(self, loader):
+            self.loader, self.wait_s = loader, 0.0
+
+        def __len__(self):
+            return len(self.loader)
+
+        def __iter__(self):
+            it = iter(self.loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                self.wait_s += time.perf_counter() - t0
+                batches.append(b)
+                yield b
+
+    def recording_loader(**kw):
+        ds, loader, sampler = build_loader(**kw)
+        loaders.append((ds, Recording(loader)))
+        return ds, loaders[-1][1], sampler
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        harness_s.append(time.perf_counter() - t0)
+        return out
+
+    cwd, t_phase = os.getcwd(), time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_test_cli_") as tmp:
+        tree = os.path.join(tmp, path.name)
+        counts = write_indoor_tree(tree, path.name, names, TEST_CLI_SCENES,
+                                   n_points=N_POINTS, seed=0)
+        ckpt = os.path.join(tmp, "checkpoint_epoch_10.pkl")
+        save_checkpoint(ckpt, build_model(copy.deepcopy(path.cfg.MODEL),
+                                          path.n_cls, dev, seed=0))
+        torch.cuda.empty_cache()
+        args, cfg = cli.parse_config(["--cfg_file", path.cfg_path, "--ckpt",
+                                      ckpt, "--set", "DATA_CONFIG.DATA_PATH",
+                                      tree])
+        CAGroup3D.forward_eval = recorded
+        cli.build_dataloader, cli.eval_one_epoch = recording_loader, timed
+        sparse_conv.launches = 0
+        segment_sums.launches = 0
+        try:
+            os.chdir(tmp)
+            ret = cli.main(args, cfg)[ckpt]
+        finally:
+            os.chdir(cwd)
+            CAGroup3D.forward_eval = forward
+            cli.build_dataloader, cli.eval_one_epoch = build_loader, evaluate
+        launches = {"sparse_conv": sparse_conv.launches,
+                    "segsum": segment_sums.launches}
+        eval_dir = os.path.join(tmp, "output", cfg.EXP_GROUP_PATH, cfg.TAG,
+                                args.extra_tag, "eval")
+        with open(os.path.join(eval_dir, "result.pkl"), "rb") as f:
+            det = pickle.load(f)
+    dataset, loader = loaders[0]
+    bad = []
+    if not len(det) == len(calls) == len(batches) == TEST_CLI_SCENES:
+        bad.append(f"{len(det)} scenes in result.pkl, {len(calls)} calls, "
+                   f"{len(batches)} batches")
+    on_card = all(next(m.parameters()).is_cuda and inp["points"].is_cuda and
+                  inp["points_valid"].is_cuda for m, inp, _, _ in calls)
+    inputs_equal = outputs_equal = True
+    frame_boxes, frame_ok, det_n = 0, True, []
+    for (m, inp, out, _), b, d in zip(calls, batches, det):
+        inputs_equal &= all(torch.equal(inp[k].cpu(), torch.from_numpy(b[k]))
+                            for k in ("points", "points_valid"))
+        v = out["pred_valid"][0].cpu().numpy()
+        mine = dict(boxes_3d=out["pred_boxes"][0].cpu().numpy()[v],
+                    scores_3d=out["pred_scores"][0].cpu().numpy()[v],
+                    labels_3d=out["pred_labels"][0].cpu().numpy()[v].astype(
+                        np.int64))
+        outputs_equal &= d["frame_id"] == b["frame_id"][0] and all(
+            d[k].dtype == x.dtype and np.array_equal(d[k], x)
+            for k, x in mine.items())
+        det_n.append(int(v.sum()))
+        pts = b["points"][0][b["points_valid"][0]]
+        gt = b["gt_boxes"][0][b["gt_valid"][0]]
+        n_in = points_in_boxes(pts[:, :3], gt[:, :7]).sum(0)
+        frame_ok &= np.array_equal(n_in, counts[b["frame_id"][0]])
+        frame_boxes += len(gt)
+    if not on_card:
+        bad.append("the model or its inputs were not on the card")
+    if not inputs_equal:
+        bad.append("forward_eval's inputs differ from the loader's batches")
+    if not outputs_equal:
+        bad.append("result.pkl differs from forward_eval's outputs")
+    if not frame_ok or frame_boxes == 0:
+        bad.append("the points inside the loaded GT boxes differ from the "
+                   "writer's counts (frame)")
+
+    def oracle(shift):
+        preds, fids = [], []
+        for b in batches:
+            gt = b["gt_boxes"][0][b["gt_valid"][0]].copy()
+            gt[:, 0] += shift * (np.hypot(gt[:, 3], gt[:, 4]) + 10.0)
+            preds.append(dict(pred_boxes=gt[:, :7],
+                              pred_scores=np.ones(len(gt), np.float32),
+                              pred_labels=gt[:, 7].astype(np.int64)))
+            fids.append(b["frame_id"][0])
+        annos = dataset.generate_prediction_dicts({"frame_id": fids}, preds,
+                                                  names)
+        r, _ = dataset.evaluation(annos, names)
+        return {k: r[k] for k in ("mAP_0.25", "mAP_0.50", "mAR_0.25",
+                                  "mAR_0.50")}
+
+    hit, miss = oracle(0.0), oracle(1.0)
+    if set(hit.values()) != {1.0}:
+        bad.append(f"the GT as predictions does not score 1.0: {hit}")
+    if miss["mAP_0.25"] != 0.0 or miss["mAP_0.50"] != 0.0:
+        bad.append(f"the shifted GT does not score 0.0: {miss}")
+    present = sorted({names[int(c)] for info in dataset.infos
+                      for c in info["annos"]["class"]})
+    keys = [f"{n}_{m}_{t}" for n in present for m in ("AP", "rec")
+            for t in ("0.25", "0.50")] + \
+        [f"{m}_{t}" for m in ("mAP", "mAR") for t in ("0.25", "0.50")]
+    if not all(k in ret and np.isfinite(ret[k]) and 0.0 <= ret[k] <= 1.0
+               for k in keys):
+        bad.append("the model's mAP/mAR is missing, not finite or out of "
+                   "[0, 1] for a class of the tree")
+    if min(launches.values()) <= 0:
+        bad.append(f"a kernel was not launched: {launches}")
+    with torch.inference_mode():
+        two = [calls[0][0].forward_eval(calls[0][1], cur_epoch=10)
+               for _ in range(2)]
+    two_same = all(torch.equal(two[0][k], two[1][k]) for k in two[0])
+    ms = harness_s[0] * 1e3 / TEST_CLI_SCENES
+    emit({"phase": "test-cli", "config": path.name, "ok": not bad,
+          "gpu": gpu, "power_limit": power, "scenes": len(det),
+          "points_per_scene": N_POINTS, "batch_size": 1,
+          "ms_per_scene": ms, "loader_share": loader.wait_s / harness_s[0],
+          "forward_ms": [c[3] for c in calls],
+          "forward_median_ms": float(np.median([c[3] for c in calls])),
+          "launches": launches,
+          "detections": det_n, "gt_boxes_checked": frame_boxes,
+          "classes": len(present),
+          **{k: ret[k] for k in ("mAP_0.25", "mAP_0.50", "mAR_0.25",
+                                 "mAR_0.50")},
+          "oracle": hit, "oracle_shifted": miss,
+          "two_calls_same_bits": two_same,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("test-cli", "; ".join(bad))
+
+
 def run_path(dev, gpu, power, path):
-    """Phases 3-11 on one configuration at full width.  Returns what the
+    """Phases 3-11 (with 7b) on one configuration at full width.  Returns what the
     ``kernels`` line needs."""
     import torch
     from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
@@ -1103,6 +1319,7 @@ def run_path(dev, gpu, power, path):
     forms, k1_eval, k2_stats = phase_eval_kernels(model, dev, path)
     eval_launches = phase_requests(model, dev, gpu, power, path)
     phase_reference(dev, path)
+    phase_test_cli(dev, gpu, power, path)
 
     # 8-11. the training step
     model.roi_gt_aug = 0.05        # see tiny_train_config

@@ -25,7 +25,11 @@ prior lifted), answers three warm-up 100k-point scenes (synthetic seeds
    share = kernel ms per
    scene / median wall ms of phase 1 (one stream, so kernels do not
    overlap).  Also the peak device memory of the run.
-4. train   -- the training step of ``chip_smoke.py`` phase 9 (the YAML's
+4. bits    -- two direct ``forward_eval`` calls on scene 0: whether
+   their outputs are the same bits and, if not, the first recorded stage
+   or float-summing op whose outputs differ, and whether its inputs were
+   the same (``two_calls``).
+5. train   -- the training step of ``chip_smoke.py`` phase 9 (the YAML's
    BATCH_SIZE_PER_GPU full-width scenes, AdamW): after one warm-up step,
    the host-clock ms of
    ``--train-steps`` steps split into forward (``forward_train`` with the
@@ -74,6 +78,80 @@ def timed(fn, name, times):
         times[name].append((time.perf_counter() - t0) * 1e3)
         return out
     return run
+
+
+def tensors(x):
+    """Every tensor in a nest of dicts, lists, tuples and dataclasses, in
+    order."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    elif hasattr(x, "__dataclass_fields__"):
+        x = list(vars(x).values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tensors(v)]
+    return []
+
+
+def same_bits(a, b):
+    """Whether two nests hold the same tensors, bit for bit."""
+    import torch
+    ta, tb = tensors(a), tensors(b)
+    return len(ta) == len(tb) and all(bool(torch.equal(x, y))
+                                      for x, y in zip(ta, tb))
+
+
+def two_calls(model, batch):
+    """Two direct ``forward_eval`` calls on one batch, recording the outputs
+    (and inputs) of every stage (backbone, dense head, proposals, RoI head)
+    and op that sums floats in an order it may not fix (the backbone's
+    ``avg_pool`` and ``interpolate_at``) or that must not (K1, K2).
+    Returns (same bits, None or the first recorded call whose outputs
+    differ: its name, index and whether its inputs were the same)."""
+    import torch
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.core import voxelize as core_vox
+    from cagroup3d_tpu_torch.models.backbones_3d import biresnet
+    targets = [(biresnet, "avg_pool"), (biresnet, "interpolate_at"),
+               (core_conv, "sparse_conv"), (core_vox, "segment_sums"),
+               (model.backbone_3d, "forward"), (model.dense_head, "forward"),
+               (model.dense_head, "get_bboxes"), (model.roi_head, "forward")]
+
+    def logged(name, fn, log):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            log.append((name, [t.clone() for t in tensors((a, kw))],
+                        [t.clone() for t in tensors(out)]))
+            return out
+        return call
+
+    logs, outs = [], []
+    with torch.inference_mode():
+        for _ in range(2):
+            log = []
+            saved = [(o, n, getattr(o, n), n in vars(o)) for o, n in targets]
+            for o, n, fn, _ in saved:
+                name = f"{type(o).__name__}.{n}" if isinstance(
+                    o, torch.nn.Module) else n
+                setattr(o, n, logged(name, fn, log))
+            try:
+                outs.append(model.forward_eval(batch, cur_epoch=10))
+            finally:
+                for o, n, fn, own in saved:
+                    if own:
+                        setattr(o, n, fn)
+                    else:
+                        delattr(o, n)
+            logs.append(log)
+    if same_bits(outs[0], outs[1]):
+        return True, None
+    for i, ((name, i0, o0), (_, i1, o1)) in enumerate(zip(*logs)):
+        if not same_bits(o0, o1):
+            return False, {"call": name, "index": i,
+                           "same_inputs": same_bits(i0, i1)}
+    return False, None
 
 
 def main():
@@ -194,7 +272,12 @@ def main():
                           for n, v in top],
           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
 
-    # 4. train -------------------------------------------------------------
+    # 4. bits -------------------------------------------------------------
+    same, apart = two_calls(model, batches[0])
+    emit({"phase": "bits", **card, "two_calls_same_bits": same,
+          "first_apart": apart}, log)
+
+    # 5. train -------------------------------------------------------------
     from chip_smoke import STEPS_PER_EPOCH, open_gate, synthetic_train_batch
     from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
         bias_init_with_prob

@@ -269,6 +269,9 @@ def test_port_imports_no_jax():
         "from cagroup3d_tpu_torch.training.optimization import "
         "build_optimizer\n"
         "from cagroup3d_tpu_torch.utils.synthetic import synthetic_batch\n"
+        "import cagroup3d_tpu_torch.datasets\n"
+        "import cagroup3d_tpu_torch.training.eval_utils\n"
+        "import cagroup3d_tpu_torch.tools.test\n"
         "from chip_smoke import synthetic_train_batch\n"
         "for name in ('scannet', 'sunrgbd'):\n"
         "    cfg = load_config(f'tools/cfgs/{name}_models/CAGroup3D.yaml')\n"
