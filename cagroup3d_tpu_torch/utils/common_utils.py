@@ -1,9 +1,14 @@
-"""Logger for the CLIs: the port's own copy of ``create_logger`` from
+"""Logger and seeding for the CLIs: the port's own copies of
+``create_logger`` and ``set_random_seed`` from
 ``cagroup3d_tpu/utils/common_utils.py`` (the reference's
 pcdet/utils/common_utils.py)."""
 from __future__ import annotations
 
 import logging
+import random
+
+import numpy as np
+import torch
 
 
 def create_logger(log_file=None):
@@ -24,3 +29,12 @@ def create_logger(log_file=None):
         logger.addHandler(fh)
     logger.propagate = False
     return logger
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed ``random`` and numpy's global generator, as the JAX package
+    does (the augmentor draws from them, so its draws equal the JAX
+    package's), and torch's default generator."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

@@ -7,8 +7,8 @@ Run from the repository root on a machine with a CUDA GPU:
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits 1 without the final line.
-Phases 3-11 (7b among them) run once per configuration (``Path``): first
-tools/cfgs/scannet_models/CAGroup3D.yaml, then
+Phases 3-11 (7b and 7c among them) run once per configuration
+(``Path``): first tools/cfgs/scannet_models/CAGroup3D.yaml, then
 tools/cfgs/sunrgbd_models/CAGroup3D.yaml (10 classes, three votes per
 voxel, headed boxes, rotated NMS and IoU losses) on synthetic scenes with
 headed GT boxes; each line names its ``config``.  The kernels' launch
@@ -68,6 +68,18 @@ after it.
    K1 and K2 launched.  It prints the harness's ms/scene, the loader's
    share and whether two direct calls give the same bits
    (``phase_test_cli``).
+7c. train-cli -- the training entry point: an 8-scene 100k-point synthetic
+   tree with REPEAT.train 1, the ``train`` CLI (``cagroup3d_tpu_torch.
+   tools.train``) run in-process at the YAML's full width and batch, with
+   the model as users build it: ``--epochs 1`` (ScanNet 2 steps of 4
+   scenes, SUN RGB-D 1 step of 8), then ``--epochs 2``, which resumes
+   from ``checkpoint_epoch_1.pkl``; then the ``test`` CLI on
+   ``checkpoint_epoch_2.pkl`` over the same tree (mAP printed only).
+   Held: every step's and every logged loss finite, the resume logged,
+   the checkpoints' epoch and it, their keys the model's parameters and
+   buffers, K1 and K3 launched in the steps and K2 in the eval.  It
+   prints ms per step (loader wait plus step), the loader's share and the
+   peak GB (``phase_train_cli``).
 8. k3      -- one full-width training step of one scene (forward, losses,
    ``backward()``), recording every K1 call (forward and feature backward)
    and every K3 call; each against its plain version on the same inputs,
@@ -101,8 +113,9 @@ after it.
    from ``tests/learn_margin.py [--yaw]``).
 
 The line before the last is {"kernels": [...]}: per kernel the launches of
-both paths' main-path runs summed, the ScanNet path's times and each
-path's own under ``paths``.  The last is {"ok": true, "device": {...}}.
+both paths' main-path runs summed (and of both paths' CLI runs,
+``train_cli_launches``), the ScanNet path's times and each path's own
+under ``paths``.  The last is {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -120,7 +133,7 @@ CFG = CFGS["scannet"]
 INPUT_CAP, FINE_CAP, N_POINTS = 65536, 4096, 100_000
 TOL, ROW_TOL = 2e-2, 1e-3
 TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 3, 2, 30
-TEST_CLI_SCENES = 8
+CLI_SCENES = 8
 NEEDED = ("a_", "b_", "c_", "d_", "e_", "f_")    # the main-path forms
 STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
 # the drop, 1 - last / first loss, that the JAX package's step makes on
@@ -1111,9 +1124,35 @@ def phase_reference(dev, path, seed=3):
         fail("reference", "card and CPU disagree on the tiny model")
 
 
+class Recording:
+    """A CLI's loader, keeping each batch it yields and the seconds its
+    consumer waited for each (``waits``)."""
+
+    def __init__(self, loader):
+        self.loader, self.batches, self.waits = loader, [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            self.batches.append(b)
+            yield b
+
+
 def phase_test_cli(dev, gpu, power, path):
     """Phase 7b: the ``test`` CLI (``cagroup3d_tpu_torch.tools.test``) in
-    this process on a synthetic tree of TEST_CLI_SCENES 100k-point scenes
+    this process on a synthetic tree of CLI_SCENES 100k-point scenes
     (``write_indoor_tree``: ScanNet points in a raw frame with a z rotation
     and translation as each scene's axis-align matrix, SUN RGB-D headed
     boxes), evaluating a checkpoint of the YAML's full-width model as
@@ -1141,7 +1180,7 @@ def phase_test_cli(dev, gpu, power, path):
     from cagroup3d_tpu_torch.utils.synthetic import (points_in_boxes,
                                                      write_indoor_tree)
     names = list(path.cfg.CLASS_NAMES)
-    calls, batches, loaders, harness_s = [], [], [], []
+    calls, loaders, harness_s = [], [], []
     forward, build_loader, evaluate = (CAGroup3D.forward_eval,
                                        cli.build_dataloader,
                                        cli.eval_one_epoch)
@@ -1153,28 +1192,6 @@ def phase_test_cli(dev, gpu, power, path):
         calls.append((self, dict(batch), dict(out),
                       (time.perf_counter() - t0) * 1e3))
         return out
-
-    class Recording:
-        """The CLI's loader, keeping each batch and the time the harness
-        waits for it."""
-
-        def __init__(self, loader):
-            self.loader, self.wait_s = loader, 0.0
-
-        def __len__(self):
-            return len(self.loader)
-
-        def __iter__(self):
-            it = iter(self.loader)
-            while True:
-                t0 = time.perf_counter()
-                try:
-                    b = next(it)
-                except StopIteration:
-                    return
-                self.wait_s += time.perf_counter() - t0
-                batches.append(b)
-                yield b
 
     def recording_loader(**kw):
         ds, loader, sampler = build_loader(**kw)
@@ -1190,7 +1207,7 @@ def phase_test_cli(dev, gpu, power, path):
     cwd, t_phase = os.getcwd(), time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_test_cli_") as tmp:
         tree = os.path.join(tmp, path.name)
-        counts = write_indoor_tree(tree, path.name, names, TEST_CLI_SCENES,
+        counts = write_indoor_tree(tree, path.name, names, CLI_SCENES,
                                    n_points=N_POINTS, seed=0)
         ckpt = os.path.join(tmp, "checkpoint_epoch_10.pkl")
         save_checkpoint(ckpt, build_model(copy.deepcopy(path.cfg.MODEL),
@@ -1217,8 +1234,8 @@ def phase_test_cli(dev, gpu, power, path):
         with open(os.path.join(eval_dir, "result.pkl"), "rb") as f:
             det = pickle.load(f)
     dataset, loader = loaders[0]
-    bad = []
-    if not len(det) == len(calls) == len(batches) == TEST_CLI_SCENES:
+    batches, bad = loader.batches, []
+    if not len(det) == len(calls) == len(batches) == CLI_SCENES:
         bad.append(f"{len(det)} scenes in result.pkl, {len(calls)} calls, "
                    f"{len(batches)} batches")
     on_card = all(next(m.parameters()).is_cuda and inp["points"].is_cuda and
@@ -1287,11 +1304,12 @@ def phase_test_cli(dev, gpu, power, path):
         two = [calls[0][0].forward_eval(calls[0][1], cur_epoch=10)
                for _ in range(2)]
     two_same = all(torch.equal(two[0][k], two[1][k]) for k in two[0])
-    ms = harness_s[0] * 1e3 / TEST_CLI_SCENES
+    ms = harness_s[0] * 1e3 / CLI_SCENES
     emit({"phase": "test-cli", "config": path.name, "ok": not bad,
           "gpu": gpu, "power_limit": power, "scenes": len(det),
           "points_per_scene": N_POINTS, "batch_size": 1,
-          "ms_per_scene": ms, "loader_share": loader.wait_s / harness_s[0],
+          "ms_per_scene": ms,
+          "loader_share": sum(loader.waits) / harness_s[0],
           "forward_ms": [c[3] for c in calls],
           "forward_median_ms": float(np.median([c[3] for c in calls])),
           "launches": launches,
@@ -1306,9 +1324,167 @@ def phase_test_cli(dev, gpu, power, path):
         fail("test-cli", "; ".join(bad))
 
 
+def phase_train_cli(dev, gpu, power, path):
+    """Phase 7c: the ``train`` CLI (``cagroup3d_tpu_torch.tools.train``) in
+    this process on a synthetic tree of CLI_SCENES 100k-point scenes
+    (``write_indoor_tree``) with REPEAT.train 1, at the YAML's full width
+    and batch and with its model as users build it (seeded, nothing
+    opened or lifted): ``--epochs 1`` (ScanNet B = 4: 2 steps; SUN RGB-D
+    B = 8: 1 step), then ``--epochs 2``, which must auto-resume from
+    ``checkpoint_epoch_1.pkl``; then the ``test`` CLI evaluates
+    ``checkpoint_epoch_2.pkl`` over the same tree (its mAP printed, not
+    held: the model is untrained).  Held: every step's loss and tb and
+    every loss in metrics.jsonl finite; the second call's log says it
+    resumed from epoch 1; the checkpoints' ``epoch`` and ``it`` (1 and 2
+    epochs of steps); the checkpoint's keys equal the model's parameters
+    and buffers; the model on the card; K1 and K3 launched during the
+    CLI's steps and K2 during its eval.  Printed: ms per step (the wait
+    for the loader plus the synchronized step), the loader's share of it
+    and the peak GB of the training calls."""
+    import glob
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.ops.segsum import segment_sums
+    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_dw
+    from cagroup3d_tpu_torch.tools import test as test_cli
+    from cagroup3d_tpu_torch.tools import train as cli
+    from cagroup3d_tpu_torch.training import train_loop
+    from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
+    names = list(path.cfg.CLASS_NAMES)
+    B = int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    steps_per_epoch = CLI_SCENES // B
+    steps, loaders, models = [], [], []
+    make_step, build_loader, build_net = (train_loop.make_train_step,
+                                          cli.build_dataloader,
+                                          cli.build_network)
+
+    def recorded_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(batch, cur_epoch=0.0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, tb = step(batch, cur_epoch)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              loss=float(loss),
+                              tb={k: float(v) for k, v in tb.items()}))
+            return loss, tb
+        return timed
+
+    def recording_loader(**kw):
+        ds, loader, sampler = build_loader(**kw)
+        loaders.append(Recording(loader))
+        return ds, loaders[-1], sampler
+
+    def recording_net(*a, **kw):
+        models.append(build_net(*a, **kw))
+        return models[-1]
+
+    cwd, t_phase, bad = os.getcwd(), time.time(), []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
+        tree = os.path.join(tmp, path.name)
+        write_indoor_tree(tree, path.name, names, CLI_SCENES,
+                          n_points=N_POINTS, seed=1)
+        data = ["--set", "DATA_CONFIG.DATA_PATH", tree]
+        torch.cuda.empty_cache()
+        train_loop.make_train_step = recorded_step
+        cli.build_dataloader, cli.build_network = (recording_loader,
+                                                   recording_net)
+        sparse_conv.launches = sparse_conv_dw.launches = 0
+        segment_sums.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            os.chdir(tmp)
+            for epochs in (1, 2):
+                args, cfg = cli.parse_config(
+                    ["--cfg_file", path.cfg_path, "--epochs", str(epochs),
+                     *data, "DATA_CONFIG.REPEAT.train", "1"])
+                out = cli.main(args, cfg)
+            train_launches = {"sparse_conv": sparse_conv.launches,
+                              "sparse_conv_dw": sparse_conv_dw.launches,
+                              "segsum": segment_sums.launches}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            ckpt = str(out / "ckpt" / "checkpoint_epoch_2.pkl")
+            model = models[-1]
+            models.clear()
+            torch.cuda.empty_cache()
+            sparse_conv.launches = sparse_conv_dw.launches = 0
+            segment_sums.launches = 0
+            targs, tcfg = test_cli.parse_config(
+                ["--cfg_file", path.cfg_path, "--ckpt", ckpt, *data])
+            ret = test_cli.main(targs, tcfg)[ckpt]
+            eval_launches = {"sparse_conv": sparse_conv.launches,
+                             "segsum": segment_sums.launches}
+        finally:
+            os.chdir(cwd)
+            train_loop.make_train_step = make_step
+            cli.build_dataloader, cli.build_network = build_loader, build_net
+        out = os.path.join(tmp, out)
+        ckpts = {}
+        for e in (1, 2):
+            with open(os.path.join(out, "ckpt", f"checkpoint_epoch_{e}.pkl"),
+                      "rb") as f:
+                ckpts[e] = pickle.load(f)
+        logs = ""
+        for log in sorted(glob.glob(os.path.join(out, "log_train_*.txt"))):
+            with open(log) as f:
+                logs += f.read()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+    finite = all(np.isfinite([s["loss"], *s["tb"].values()]).all()
+                 for s in steps) and all(
+        np.isfinite(v) for ln in logged for k, v in ln.items()
+        if k.startswith("train/loss"))
+    if not finite or not steps or not logged:
+        bad.append("a step's or a logged loss is not finite, or none was "
+                   "logged")
+    if len(steps) != 2 * steps_per_epoch:
+        bad.append(f"{len(steps)} steps, not {2 * steps_per_epoch}")
+    its = {e: (c["epoch"], c["it"]) for e, c in ckpts.items()}
+    if its != {1: (1, steps_per_epoch), 2: (2, 2 * steps_per_epoch)}:
+        bad.append(f"checkpoint (epoch, it): {its}")
+    resumed = re.search(r"auto-resuming from \S*checkpoint_epoch_1\.pkl "
+                        r"\(epoch 1\)", logs) is not None
+    if not resumed:
+        bad.append("the second call did not log its resume from epoch 1")
+    keys_ok = (set(ckpts[2]["params"]) ==
+               {k for k, _ in model.named_parameters()} and
+               set(ckpts[2]["state"]) == {k for k, _ in model.named_buffers()})
+    if not keys_ok:
+        bad.append("the checkpoint's keys differ from the model's parameters "
+                   "and buffers")
+    if not next(model.parameters()).is_cuda:
+        bad.append("the model was not on the card")
+    if min(train_launches["sparse_conv"], train_launches["sparse_conv_dw"],
+           eval_launches["segsum"]) <= 0:
+        bad.append(f"a kernel was not launched: train {train_launches}, "
+                   f"eval {eval_launches}")
+    waits = [w * 1e3 for ld in loaders for w in ld.waits]
+    ms = [w + s["ms"] for w, s in zip(waits, steps)]
+    emit({"phase": "train-cli", "config": path.name, "ok": not bad,
+          "gpu": gpu, "power_limit": power, "scenes": CLI_SCENES,
+          "points_per_scene": N_POINTS, "batch_size": B,
+          "steps_per_epoch": steps_per_epoch, "ms_per_step": ms,
+          "median_ms": float(np.median(ms)) if ms else None,
+          "loader_share": sum(waits) / sum(ms) if ms else None,
+          "peak_memory_gb": peak_gb, "losses": [s["loss"] for s in steps],
+          "tb": steps[-1]["tb"] if steps else None,
+          "checkpoints": its, "resumed": resumed,
+          "train_launches": train_launches, "eval_launches": eval_launches,
+          **{k: ret[k] for k in ("mAP_0.25", "mAP_0.50", "mAR_0.25",
+                                 "mAR_0.50")},
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("train-cli", "; ".join(bad))
+    return train_launches, eval_launches
+
+
 def run_path(dev, gpu, power, path):
-    """Phases 3-11 (with 7b) on one configuration at full width.  Returns what the
-    ``kernels`` line needs."""
+    """Phases 3-11 (with 7b and 7c) on one configuration at full width.
+    Returns what the ``kernels`` line needs."""
     import torch
     from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
         bias_init_with_prob
@@ -1320,6 +1496,7 @@ def run_path(dev, gpu, power, path):
     eval_launches = phase_requests(model, dev, gpu, power, path)
     phase_reference(dev, path)
     phase_test_cli(dev, gpu, power, path)
+    cli_train, cli_eval = phase_train_cli(dev, gpu, power, path)
 
     # 8-11. the training step
     model.roi_gt_aug = 0.05        # see tiny_train_config
@@ -1335,14 +1512,16 @@ def run_path(dev, gpu, power, path):
     return dict(k1_eval=k1_eval, k1_eval_max_abs=max(
         f["max_abs"] for f in forms.values()), k2=k2_stats,
         eval_launches=eval_launches, k1_train=k1_train, k3_train=k3_train,
-        train_launches=train_launches)
+        train_launches=train_launches, cli_train=cli_train, cli_eval=cli_eval)
 
 
 def kernel_line(res):
     """The ``kernels`` line: each kernel's launches summed over the paths'
-    main-path runs (K1, K3: the timed training steps; K2: the requests),
-    its largest error over every replay, and its times from the ScanNet
-    path, with each path's own beside them."""
+    main-path runs (K1, K3: the timed training steps; K2: the requests)
+    and, as ``train_cli_launches``, over the ``train`` CLI's runs (K1, K3:
+    its steps; K2: the ``test`` CLI on its checkpoint), its largest error
+    over every replay, and its times from the ScanNet path, with each
+    path's own beside them."""
     def times(st):
         return {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
@@ -1351,14 +1530,17 @@ def kernel_line(res):
         return dict(times(r["k1_train"]), eval_ms=r["k1_eval"]["ms"],
                     eval_bound_ms=r["k1_eval"]["bound_ms"],
                     eval_library_ms=r["k1_eval"]["library_ms"],
-                    launches=r["train_launches"]["sparse_conv"])
+                    launches=r["train_launches"]["sparse_conv"],
+                    train_cli_launches=r["cli_train"]["sparse_conv"])
 
     def k2(r):
-        return dict(times(r["k2"]), launches=r["eval_launches"]["segsum"])
+        return dict(times(r["k2"]), launches=r["eval_launches"]["segsum"],
+                    train_cli_launches=r["cli_eval"]["segsum"])
 
     def k3(r):
         return dict(times(r["k3_train"]),
-                    launches=r["train_launches"]["sparse_conv_dw"])
+                    launches=r["train_launches"]["sparse_conv_dw"],
+                    train_cli_launches=r["cli_train"]["sparse_conv_dw"])
 
     out = []
     for name, fn, src, line, err in (
@@ -1374,6 +1556,8 @@ def kernel_line(res):
                     "replaces": "cagroup3d_tpu/ops/" + line,
                     **paths["scannet"],
                     "launches": sum(v["launches"] for v in paths.values()),
+                    "train_cli_launches": sum(v["train_cli_launches"]
+                                              for v in paths.values()),
                     "max_abs_err": max(err(r) for r in res.values()),
                     "paths": paths})
     return {"kernels": out}

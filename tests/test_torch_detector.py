@@ -272,6 +272,8 @@ def test_port_imports_no_jax():
         "import cagroup3d_tpu_torch.datasets\n"
         "import cagroup3d_tpu_torch.training.eval_utils\n"
         "import cagroup3d_tpu_torch.tools.test\n"
+        "import cagroup3d_tpu_torch.tools.train\n"
+        "import cagroup3d_tpu_torch.tools.overfit_check\n"
         "from chip_smoke import synthetic_train_batch\n"
         "for name in ('scannet', 'sunrgbd'):\n"
         "    cfg = load_config(f'tools/cfgs/{name}_models/CAGroup3D.yaml')\n"
