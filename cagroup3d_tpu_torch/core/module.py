@@ -14,8 +14,10 @@ for the same seed.
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -92,6 +94,31 @@ def flat_state(module: nn.Module, prefix: str = ""):
     P = {pre + n: p for n, p in module.named_parameters()}
     S = {pre + n: b for n, b in module.named_buffers()}
     return P, S
+
+
+def load_jax_params(model: nn.Module, P, S: Optional[Params] = None) -> None:
+    """Copy the JAX package's flat param/state dicts (numpy arrays by name)
+    into ``model``; ``P`` may instead be the path of a pickled checkpoint
+    written by either package's ``save_checkpoint``.  Raises on a missing
+    or extra name or a shape mismatch."""
+    if isinstance(P, (str, bytes)) or hasattr(P, "__fspath__"):
+        with open(P, "rb") as f:
+            ckpt = pickle.load(f)
+        P, S = ckpt["params"], ckpt["state"]
+    mine_p, mine_s = flat_state(model)
+    for name, mine, theirs in (("params", mine_p, P), ("state", mine_s, S)):
+        missing = sorted(set(mine) - set(theirs))
+        extra = sorted(set(theirs) - set(mine))
+        if missing or extra:
+            raise KeyError(f"{name}: missing {missing[:8]}, extra "
+                           f"{extra[:8]}")
+        for k, t in mine.items():
+            src = np.asarray(theirs[k])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{k}: shape {src.shape} != "
+                                 f"{tuple(t.shape)}")
+            with torch.no_grad():
+                t.copy_(torch.from_numpy(np.array(src)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """Model builders (pcdet surface): ``build_network`` and the YAML loader."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..config import EasyDict, cfg_from_yaml_file
 from .detectors.cagroup3d import CAGroup3D
+from .detectors.rbgnet import RBGNet
+
+DETECTORS = {"CAGroup3D": CAGroup3D, "RBGNet": RBGNet}
 
 
 def load_model_config(cfg_path: str):
@@ -23,11 +26,13 @@ def load_config(cfg_path: str) -> EasyDict:
 
 def build_network(model_cfg, num_class: int,
                   generator: Optional[torch.Generator] = None,
-                  device=None) -> CAGroup3D:
-    """Build the detector named by ``model_cfg.NAME`` with a seeded init
-    (``generator``; seed 0 when None) on ``device`` (the GPU unless the
-    caller passes another device; there is no CPU fallback)."""
-    if model_cfg.NAME != "CAGroup3D":
+                  device=None) -> Union[CAGroup3D, RBGNet]:
+    """Build the detector named by ``model_cfg.NAME`` (CAGroup3D or
+    RBGNet) with a seeded init (``generator``; seed 0 when None) on
+    ``device`` (the GPU unless the caller passes another device; there is
+    no CPU fallback)."""
+    if model_cfg.NAME not in DETECTORS:
         raise NotImplementedError(f"{model_cfg.NAME} is not ported yet")
     device = torch.device("cuda") if device is None else device
-    return CAGroup3D(model_cfg, num_class, generator).to(device)
+    return DETECTORS[model_cfg.NAME](model_cfg, num_class,
+                                     generator).to(device)

@@ -17,7 +17,6 @@ across scenes.
 """
 from __future__ import annotations
 
-import pickle
 import threading
 from typing import Dict, List, Optional
 
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.module import Ctx, flat_state
+from ...core.module import Ctx, flat_state, load_jax_params
 from ...core.norm import SceneSync
 from ...core.voxelize import unique_voxels
 from ...ops import build
@@ -58,28 +57,8 @@ class CAGroup3D(nn.Module):
         return float(np.float32(thr))  # the JAX package holds it in f32
 
     def load_jax_params(self, P, S: Optional[Dict] = None) -> None:
-        """Copy the JAX package's flat param/state dicts (numpy arrays by
-        name) into this model; ``P`` may instead be the path of a pickled
-        checkpoint written by the JAX package's ``save_checkpoint``.
-        Raises on a missing or extra name or a shape mismatch."""
-        if isinstance(P, (str, bytes)) or hasattr(P, "__fspath__"):
-            with open(P, "rb") as f:
-                ckpt = pickle.load(f)
-            P, S = ckpt["params"], ckpt["state"]
-        mine_p, mine_s = flat_state(self)
-        for name, mine, theirs in (("params", mine_p, P), ("state", mine_s, S)):
-            missing = sorted(set(mine) - set(theirs))
-            extra = sorted(set(theirs) - set(mine))
-            if missing or extra:
-                raise KeyError(f"{name}: missing {missing[:8]}, extra "
-                               f"{extra[:8]}")
-            for k, t in mine.items():
-                src = np.asarray(theirs[k])
-                if tuple(src.shape) != tuple(t.shape):
-                    raise ValueError(f"{k}: shape {src.shape} != "
-                                     f"{tuple(t.shape)}")
-                with torch.no_grad():
-                    t.copy_(torch.from_numpy(np.array(src)))
+        """``core.module.load_jax_params`` into this model."""
+        load_jax_params(self, P, S)
 
     # ------------------------------------------------------------------
     def _voxelize_scene(self, points, valid, stats, drop_offset=None):

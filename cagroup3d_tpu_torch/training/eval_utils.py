@@ -67,7 +67,8 @@ def eval_one_epoch(model, dataset, loader, epoch_id, logger,
         t0 = time.time()
         with torch.inference_mode():
             preds = model.forward_eval(batch, cur_epoch=epoch_id)
-        overflow = int(preds["overflow"].sum())
+        overflow = int(preds["overflow"].sum()) if "overflow" in preds \
+            else 0
         if overflow > 0:
             logger.warning(
                 f"capacity overflow: {overflow} voxels dropped this batch "

@@ -1,6 +1,7 @@
 """mmdet-style losses (reference pcdet/utils/loss_utils.py, iou3d_loss.py).
 
-Counterpart of ``cagroup3d_tpu/utils/loss_utils.py`` for CAGroup3D.  Static shapes: callers pass element weights/masks instead
+Counterpart of ``cagroup3d_tpu/utils/loss_utils.py`` for CAGroup3D and
+RBGNet.  Static shapes: callers pass element weights/masks instead
 of boolean indexing, and ``avg_factor`` is an explicit normalizer.  Ignored
 labels are -1, which maps to an all-zero one-hot (pure background in the
 focal loss, the reference's ``target[target < 0] = num_classes``).
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.geometry import iou3d_aligned, iou3d_rotated
+from ..core.geometry import _max0, iou3d_aligned, iou3d_rotated
 
 _EPS = float(torch.finfo(torch.float32).eps)
 
@@ -106,3 +107,42 @@ def iou3d_loss(pred7, target7, weight=None, avg_factor=None, with_yaw=True,
     if weight is not None:
         loss = loss * weight
     return _reduce(loss, avg_factor, loss_weight)
+
+
+def cross_entropy_with_logits(logits, labels, class_weight=None):
+    """Per-element softmax cross entropy (torch CrossEntropyLoss with
+    reduction='none' and optional per-class weights, RBGNet's objectness,
+    sample and intersection losses).  logits [..., K], labels [...] ->
+    [...]; labels are clipped into [0, K)."""
+    logp = torch.log_softmax(logits, -1)
+    lab = labels.long().clamp(0, logits.shape[-1] - 1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    if class_weight is not None:
+        w = torch.as_tensor(class_weight, dtype=logits.dtype,
+                            device=logits.device)
+        nll = nll * w[lab]
+    return nll
+
+
+def axis_aligned_iou_corners(corners_a, corners_b):
+    """IoU of corner-format axis-aligned boxes [..., 6] (x1 y1 z1 x2 y2
+    z2)."""
+    lo = torch.maximum(corners_a[..., :3], corners_b[..., :3])
+    hi = torch.minimum(corners_a[..., 3:6], corners_b[..., 3:6])
+    whd = _max0(hi - lo)
+    inter = whd[..., 0] * whd[..., 1] * whd[..., 2]
+    ea = _max0(corners_a[..., 3:6] - corners_a[..., :3])
+    eb = _max0(corners_b[..., 3:6] - corners_b[..., :3])
+    va = ea[..., 0] * ea[..., 1] * ea[..., 2]
+    vb = eb[..., 0] * eb[..., 1] * eb[..., 2]
+    return inter / torch.maximum(va + vb - inter,
+                                 torch.full_like(inter, 1e-9))
+
+
+def axis_aligned_iou_loss(corners_pred, corners_tgt, weight=None):
+    """AxisAlignedIoULoss with reduction 'sum': the sum of
+    weight * (1 - IoU) over corner-format boxes."""
+    loss = 1.0 - axis_aligned_iou_corners(corners_pred, corners_tgt)
+    if weight is not None:
+        loss = loss * weight
+    return loss.sum()

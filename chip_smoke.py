@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch port: CAGroup3D eval and training on one NVIDIA
-card, ScanNet and then SUN RGB-D (the yaw path).
+card, ScanNet and then SUN RGB-D (the yaw path), then RBGNet on both.
 
 Run from the repository root on a machine with a CUDA GPU:
 
@@ -112,15 +112,48 @@ after it.
    on the CPU in the same setting (``JAX_LEARN_DROP``, ``JAX_LEARN_DROP_YAW``
    from ``tests/learn_margin.py [--yaw]``).
 
+Then RBGNet (tools/cfgs/{scannet,sunrgbd}_models/RBGNet.yaml; lines
+tagged ``"config": "rbgnet_scannet"`` / ``"rbgnet_sunrgbd"``), at full
+width on synthetic scenes; its path has no hand-written kernel, and every
+RBGNet phase holds that K1, K2 and K3 launch 0 times:
+rbgnet-requests -- the YAML's seeded model through ``build_network``; a
+   warm-up and three 100k-point scenes through ``forward_eval`` at batch 1;
+   outputs finite with the expected shapes, headed boxes on SUN RGB-D;
+   ms per scene and one synchronized stage split (backbone and its FPS,
+   vote module with aggregation and predictions, ray grouping and its
+   FPS, boxes and NMS; ``rbg_stage_split``).
+rbgnet-test-cli -- phase 7b's checks on RBGNet: the ``test`` CLI over an
+   8-scene 100k-point tree with a checkpoint of that model; result.pkl
+   equals the forward's outputs unpadded, the GT-as-predictions oracle
+   scores 1.0, the model's mAP finite in [0, 1].
+rbgnet-train -- phase 9 on RBGNet: the YAML's OPTIMIZATION (AdamW, lr
+   0.006, wd 0.01, clip 10) at B = 8, one warm-up and RBG_TRAIN_STEPS timed
+   steps; loss, tb and every gradient finite, each module's non-zero,
+   parameters and BN running stats changed; ms per step, peak GB.
+rbgnet-train-cli -- the ``train`` CLI for one epoch over an 8-scene tree
+   with REPEAT.train 1 (one step at B = 8): losses finite, the
+   checkpoint's keys the model's (``phase_rbg_train_cli``).
+rbgnet-reference -- the tiny configuration (``TINY_RBG``), card against
+   CPU, stage by stage on the same inputs at phase 7's bars, discrete
+   steps that part the devices counted (``phase_rbg_reference``).
+rbgnet-learn -- the tiny configuration on two fixed B = 2 batches, 60
+   steps each: the mean drop of the loss's ungated part (``rbg_drop`` of
+   ``rbg_learn_loss``: 1 - the median of the second half / the first) at
+   least nine tenths of the JAX package's (``JAX_LEARN_DROP_RBG``,
+   ``JAX_LEARN_DROP_RBG_YAW`` from ``tests/learn_margin.py --rbgnet
+   [--yaw]``).
+
 The line before the last is {"kernels": [...]}: per kernel the launches of
-both paths' main-path runs summed (and of both paths' CLI runs,
-``train_cli_launches``), the ScanNet path's times and each path's own
-under ``paths``.  The last is {"ok": true, "device": {...}}.
+both CAGroup3D paths' main-path runs summed (and of both paths' CLI runs,
+``train_cli_launches``; of every RBGNet run, ``rbgnet_launches``), the
+ScanNet path's times and each path's own under ``paths``.  The last is
+{"ok": true, "device": {...}}.
 """
 import copy
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -130,11 +163,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CFGS = {name: os.path.join(HERE, "tools", "cfgs", f"{name}_models",
                            "CAGroup3D.yaml") for name in ("scannet", "sunrgbd")}
 CFG = CFGS["scannet"]
+RBG_CFGS = {name: os.path.join(HERE, "tools", "cfgs", f"{name}_models",
+                               "RBGNet.yaml") for name in ("scannet",
+                                                           "sunrgbd")}
 INPUT_CAP, FINE_CAP, N_POINTS = 65536, 4096, 100_000
 TOL, ROW_TOL = 2e-2, 1e-3
-TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 3, 2, 30
+TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 1, 1, 30
+RBG_TRAIN_STEPS, RBG_LEARN_STEPS = 2, 60
+RBG_LEARN_SEEDS = (11, 12)              # rbgnet-learn's fixed batches
 CLI_SCENES = 8
 NEEDED = ("a_", "b_", "c_", "d_", "e_", "f_")    # the main-path forms
+EVAL_KERNELS = ("sparse_conv", "segsum")        # CAGroup3D's eval launches
 STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
 # the drop, 1 - last / first loss, that the JAX package's step makes on
 # the CPU in the learn setting (tests/learn_margin.py; the port's CPU step
@@ -144,6 +183,12 @@ JAX_LEARN_DROP = 0.3663
 # the same for the SUN RGB-D configuration on headed scenes
 # (tests/learn_margin.py --yaw; the port's CPU step made 0.2190)
 JAX_LEARN_DROP_YAW = 0.2285
+# RBGNet's learn drops (``rbg_drop`` of ``rbg_learn_loss`` over
+# RBG_LEARN_STEPS steps, the mean over the RBG_LEARN_SEEDS batches) that
+# the JAX package's step makes on the CPU (tests/learn_margin.py --rbgnet
+# [--yaw]; the port's CPU step made 0.7058 and 0.7210 in the same runs)
+JAX_LEARN_DROP_RBG = 0.6941
+JAX_LEARN_DROP_RBG_YAW = 0.7222
 # K1's ms per main-path form with its first design (a 64 x 64 WMMA tile
 # rebuilding its kernel map per column tile; this script on an NVIDIA H100
 # 80GB HBM3 at 700.00 W): the redesign's bar is half of each, printed
@@ -177,7 +222,14 @@ LIB_CHUNK_BYTES = 1 << 30
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 
 
+T0 = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's elapsed seconds
+    (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.time() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -187,6 +239,8 @@ def fail(phase, msg):
 
 
 def time_ms(fn, reps):
+    """CUDA-event ms of one call of ``fn``, the mean of ``reps`` calls
+    after one warm-up call."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -433,6 +487,52 @@ def tiny_train_config(seed_cfg=CFG):
     tc.ROI_HEAD.DP_RATIO = 0.0
     tc.ROI_GT_AUG = 0.05
     return tc, names, cfg
+
+
+# RBGNet's tiny widths (tests/test_rbgnet.py::tiny_rbg_cfg) by configuration
+# key below MODEL; the YAML keeps its classes, bins, radii and thresholds
+TINY_RBG = {
+    "BACKBONE_3D.SA_CONFIG.NPOINTS": [128, 64, 32, 16],
+    "BACKBONE_3D.SA_CONFIG.NSAMPLE": [8, 8, 4, 4],
+    "BACKBONE_3D.SA_CONFIG.MLPS": [[16, 16, 32], [32, 32, 32], [32, 32, 32],
+                                   [32, 32, 32]],
+    "BACKBONE_3D.SA_CONFIG.FBS_MLPS": [[-1, -1], [16, 16], [16, 16],
+                                       [16, 16]],
+    "BACKBONE_3D.SA_CONFIG.TOPK": [-1, 48, 24, 12],
+    "BACKBONE_3D.SA_CONFIG.FG_NSAMPLE": [-1, 48, 24, 12],
+    "BACKBONE_3D.FP_MLPS": [[32, 32], [32, 32]],
+    "POINT_HEAD.VOTE_MODULE_CFG.IN_CHANNELS": 32,
+    "POINT_HEAD.VOTE_MODULE_CFG.CONV_CHANNELS": [32, 32],
+    "POINT_HEAD.VOTE_AGGREGATION_CFG.NUM_POINTS": 16,
+    "POINT_HEAD.VOTE_AGGREGATION_CFG.NUM_SAMPLE": 4,
+    "POINT_HEAD.VOTE_AGGREGATION_CFG.MLP_CHANNELS": [32, 16, 16, 16],
+    "POINT_HEAD.PRED_LAYER_CFG.IN_CHANNELS": 16,
+    "POINT_HEAD.PRED_LAYER_CFG.SHARED_CONV_CHANNELS": [16, 16],
+    "POINT_HEAD.FPS_NUM_SAMPLE": 128,
+    "POINT_HEAD.RAY_NUM": 18,
+    "POINT_HEAD.RAY_BASED_GROUP.RAY_NUM": 18,
+    "POINT_HEAD.RAY_BASED_GROUP.SEED_FEAT_DIM": 32,
+    "POINT_HEAD.RAY_BASED_GROUP.FPS_NUM_SAMPLE": 128,
+    "POINT_HEAD.RAY_BASED_GROUP.SA_NUM_SAMPLE": 4,
+    "POINT_HEAD.RAY_BASED_GROUP.NUM_SEED_POINTS": 64,
+}
+
+
+def tiny_rbg_model(mc):
+    """Set an RBGNet model configuration's widths to the tiny ones, in
+    place."""
+    for key, value in TINY_RBG.items():
+        *path, leaf = key.split(".")
+        d = mc
+        for p in path:
+            d = d[p]
+        d[leaf] = copy.deepcopy(value)
+    return mc
+
+
+def tiny_rbg_set():
+    """The tiny widths as the CLIs' ``--set`` arguments."""
+    return [x for k, v in TINY_RBG.items() for x in (f"MODEL.{k}", repr(v))]
 
 
 TINY_SCENE = dict(n_points=4000, room=(3.0, 3.0, 2.5), n_objects=4)
@@ -691,8 +791,6 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
     """Phase 9: B-scene training steps at full width (B and the optimizer
     from the YAML).  Returns the launch counts of the timed steps."""
     import torch
-    from cagroup3d_tpu_torch.ops.segsum import segment_sums
-    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_dw
     from cagroup3d_tpu_torch.parallel.mesh import make_train_step
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
     opt_cfg = path.cfg.OPTIMIZATION
@@ -705,8 +803,7 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step(batches[0], 0.0)                                      # warm-up
     torch.cuda.synchronize()
-    sparse_conv.launches = sparse_conv_dw.launches = 0
-    segment_sums.launches = 0
+    launch_counts(reset=True)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, tbs = [], [], []
     for b in batches[1:]:
@@ -717,9 +814,7 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         tbs.append({k: float(v) for k, v in tb.items()})
-    train_launches = {"sparse_conv": sparse_conv.launches,
-                      "sparse_conv_dw": sparse_conv_dw.launches,
-                      "segsum": segment_sums.launches}
+    train_launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     groups = {}
     for k, p in model.named_parameters():
@@ -741,9 +836,10 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
                      losses + [v for t in tbs for v in t.values()]))
     grads_ok = all(g_["finite"] and g_["sq"] > 0 for g_ in groups.values())
     ok = (finite and grads_ok and changed["params"] > 0 and
-          changed["buffers"] > 0 and train_launches["sparse_conv"] > 0 and
-          train_launches["sparse_conv_dw"] > 0)
-    emit({"phase": "train", "config": path.name, "ok": ok, "gpu": gpu,
+          changed["buffers"] > 0 and not path.launches_bad(
+              train_launches, ("sparse_conv", "sparse_conv_dw")))
+    phase = "train" if path.kernels else "rbgnet-train"
+    emit({"phase": phase, "config": path.name, "ok": ok, "gpu": gpu,
           "power_limit": power, "scenes_per_step": B,
           "points_per_scene": n_points,
           "steps": path.train_steps, "ms_per_step": step_ms,
@@ -753,11 +849,13 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
                                   for k, g_ in groups.items()},
           "zero_grad_params": {k: g_["zero"] for k, g_ in groups.items()},
           "changed": changed, "launches": train_launches})
-    if path.yaw and not all("rcnn_loss_iou" in t for t in tbs):
+    if path.yaw and path.kernels and \
+            not all("rcnn_loss_iou" in t for t in tbs):
         fail("train", "the yaw path's RoI IoU loss is missing")
     if not ok:
-        fail("train", "non-finite loss or gradients, a module without "
-                      "gradient, nothing updated, or K1/K3 not launched")
+        fail(phase, "non-finite loss or gradients, a module without "
+                    "gradient, nothing updated, or the kernels' launches "
+                    "break the path's rule")
     return train_launches
 
 
@@ -842,16 +940,40 @@ def phase_learn(dev, ttc, n_names, batch, path):
 class Path:
     """One configuration's main path: the YAML, its synthetic scenes
     (class count, headed boxes for the yaw path), the timed training steps
-    and the JAX package's learn drop."""
+    and the JAX package's learn drop.  CAGroup3D's paths launch the
+    kernels (``kernels``)."""
+    kernels = True
 
-    def __init__(self, name, train_steps, jax_learn_drop):
+    def __init__(self, name, train_steps, jax_learn_drop, cfg_path=None,
+                 dataset=None):
         from cagroup3d_tpu_torch.models import load_config
-        self.name, self.cfg_path = name, CFGS[name]
+        self.name, self.cfg_path = name, cfg_path or CFGS[name]
+        self.dataset = dataset or name
         self.cfg = load_config(self.cfg_path)
         self.n_cls = len(self.cfg.CLASS_NAMES)
-        self.yaw = bool(self.cfg.MODEL.DENSE_HEAD.WITH_YAW)
+        self.yaw = self._yaw()
         self.scene = dict(n_classes=self.n_cls, yaw=self.yaw)
         self.train_steps, self.jax_learn_drop = train_steps, jax_learn_drop
+
+    def _yaw(self):
+        return bool(self.cfg.MODEL.DENSE_HEAD.WITH_YAW)
+
+    def detector(self):
+        from cagroup3d_tpu_torch.models.detectors.cagroup3d import CAGroup3D
+        return CAGroup3D
+
+    def eval_model(self, dev):
+        """The full-width model users evaluate (phase 7b's checkpoint)."""
+        return build_model(copy.deepcopy(self.cfg.MODEL), self.n_cls, dev,
+                           seed=0)
+
+    def launches_bad(self, launches, needed=None):
+        """Whether a run's launch counts break the path's rule: each kernel
+        of ``needed`` (all by default) launched (CAGroup3D), or none at all
+        (RBGNet)."""
+        if self.kernels:
+            return min(launches[k] for k in needed or launches) <= 0
+        return max(launches.values()) != 0
 
     def against_before(self, kind, name, f):
         """The first designs' times were taken on the ScanNet path."""
@@ -972,11 +1094,8 @@ def phase_requests(model, dev, gpu, power, path):
     """Phase 6: launch counters reset, three 100k-point scenes through
     ``forward_eval``.  Returns the launch counts."""
     import torch
-    from cagroup3d_tpu_torch.ops.segsum import segment_sums
-    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv
     from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
-    sparse_conv.launches = 0
-    segment_sums.launches = 0
+    launch_counts(reset=True)
     lat_ms, outs = [], []
     for seed in (0, 1, 2):
         batch = synthetic_request(seed, dev, N_POINTS, **path.scene)
@@ -986,8 +1105,7 @@ def phase_requests(model, dev, gpu, power, path):
         torch.cuda.synchronize()
         lat_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    launches = {"sparse_conv": sparse_conv.launches,
-                "segsum": segment_sums.launches}
+    launches = launch_counts()
     R = model.roi_head.max_out
     for out in outs:
         if tuple(out["pred_boxes"].shape) != (1, R, 7) or \
@@ -996,7 +1114,7 @@ def phase_requests(model, dev, gpu, power, path):
                              f"{ {k: tuple(v.shape) for k, v in out.items()} }")
         if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()):
             fail("requests", "non-finite outputs")
-    if min(launches.values()) <= 0:
+    if path.launches_bad(launches, EVAL_KERNELS):
         fail("requests", f"a kernel was not launched on the main path: "
                          f"{launches}")
     valid = [o["pred_valid"][0] for o in outs]
@@ -1172,16 +1290,14 @@ def phase_test_cli(dev, gpu, power, path):
     import tempfile
     import numpy as np
     import torch
-    from cagroup3d_tpu_torch.models.detectors.cagroup3d import CAGroup3D
-    from cagroup3d_tpu_torch.ops.segsum import segment_sums
-    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv
     from cagroup3d_tpu_torch.tools import test as cli
     from cagroup3d_tpu_torch.training.checkpoint import save_checkpoint
     from cagroup3d_tpu_torch.utils.synthetic import (points_in_boxes,
                                                      write_indoor_tree)
     names = list(path.cfg.CLASS_NAMES)
     calls, loaders, harness_s = [], [], []
-    forward, build_loader, evaluate = (CAGroup3D.forward_eval,
+    Detector = path.detector()
+    forward, build_loader, evaluate = (Detector.forward_eval,
                                        cli.build_dataloader,
                                        cli.eval_one_epoch)
 
@@ -1207,28 +1323,25 @@ def phase_test_cli(dev, gpu, power, path):
     cwd, t_phase = os.getcwd(), time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_test_cli_") as tmp:
         tree = os.path.join(tmp, path.name)
-        counts = write_indoor_tree(tree, path.name, names, CLI_SCENES,
+        counts = write_indoor_tree(tree, path.dataset, names, CLI_SCENES,
                                    n_points=N_POINTS, seed=0)
         ckpt = os.path.join(tmp, "checkpoint_epoch_10.pkl")
-        save_checkpoint(ckpt, build_model(copy.deepcopy(path.cfg.MODEL),
-                                          path.n_cls, dev, seed=0))
+        save_checkpoint(ckpt, path.eval_model(dev))
         torch.cuda.empty_cache()
         args, cfg = cli.parse_config(["--cfg_file", path.cfg_path, "--ckpt",
                                       ckpt, "--set", "DATA_CONFIG.DATA_PATH",
                                       tree])
-        CAGroup3D.forward_eval = recorded
+        Detector.forward_eval = recorded
         cli.build_dataloader, cli.eval_one_epoch = recording_loader, timed
-        sparse_conv.launches = 0
-        segment_sums.launches = 0
+        launch_counts(reset=True)
         try:
             os.chdir(tmp)
             ret = cli.main(args, cfg)[ckpt]
         finally:
             os.chdir(cwd)
-            CAGroup3D.forward_eval = forward
+            Detector.forward_eval = forward
             cli.build_dataloader, cli.eval_one_epoch = build_loader, evaluate
-        launches = {"sparse_conv": sparse_conv.launches,
-                    "segsum": segment_sums.launches}
+        launches = launch_counts()
         eval_dir = os.path.join(tmp, "output", cfg.EXP_GROUP_PATH, cfg.TAG,
                                 args.extra_tag, "eval")
         with open(os.path.join(eval_dir, "result.pkl"), "rb") as f:
@@ -1298,14 +1411,15 @@ def phase_test_cli(dev, gpu, power, path):
                for k in keys):
         bad.append("the model's mAP/mAR is missing, not finite or out of "
                    "[0, 1] for a class of the tree")
-    if min(launches.values()) <= 0:
-        bad.append(f"a kernel was not launched: {launches}")
+    if path.launches_bad(launches, EVAL_KERNELS):
+        bad.append(f"kernel launches break the path's rule: {launches}")
     with torch.inference_mode():
         two = [calls[0][0].forward_eval(calls[0][1], cur_epoch=10)
                for _ in range(2)]
     two_same = all(torch.equal(two[0][k], two[1][k]) for k in two[0])
     ms = harness_s[0] * 1e3 / CLI_SCENES
-    emit({"phase": "test-cli", "config": path.name, "ok": not bad,
+    phase = "test-cli" if path.kernels else "rbgnet-test-cli"
+    emit({"phase": phase, "config": path.name, "ok": not bad,
           "gpu": gpu, "power_limit": power, "scenes": len(det),
           "points_per_scene": N_POINTS, "batch_size": 1,
           "ms_per_scene": ms,
@@ -1321,7 +1435,61 @@ def phase_test_cli(dev, gpu, power, path):
           "two_calls_same_bits": two_same,
           "seconds": time.time() - t_phase})
     if bad:
-        fail("test-cli", "; ".join(bad))
+        fail(phase, "; ".join(bad))
+    return launches
+
+
+class TrainCliRecording:
+    """The ``train`` CLI's synchronized steps (ms, loss, tb), loaders
+    (``Recording``) and built models, recorded between ``start()`` and
+    ``stop()``."""
+
+    def __init__(self):
+        self.steps, self.loaders, self.models = [], [], []
+        self.saved = None
+
+    def start(self):
+        import torch
+        from cagroup3d_tpu_torch.tools import train as cli
+        from cagroup3d_tpu_torch.training import train_loop
+        self.saved = (train_loop.make_train_step, cli.build_dataloader,
+                      cli.build_network)
+        make_step, build_loader, build_net = self.saved
+
+        def recorded_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def timed(batch, cur_epoch=0.0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, tb = step(batch, cur_epoch)
+                torch.cuda.synchronize()
+                self.steps.append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
+                    tb={k: float(v) for k, v in tb.items()}))
+                return loss, tb
+            return timed
+
+        def recording_loader(**kw):
+            ds, loader, sampler = build_loader(**kw)
+            self.loaders.append(Recording(loader))
+            return ds, self.loaders[-1], sampler
+
+        def recording_net(*a, **kw):
+            self.models.append(build_net(*a, **kw))
+            return self.models[-1]
+
+        train_loop.make_train_step = recorded_step
+        cli.build_dataloader, cli.build_network = (recording_loader,
+                                                   recording_net)
+
+    def stop(self):
+        """Put the CLI's functions back (a no-op unless started)."""
+        from cagroup3d_tpu_torch.tools import train as cli
+        from cagroup3d_tpu_torch.training import train_loop
+        if self.saved is not None:
+            (train_loop.make_train_step, cli.build_dataloader,
+             cli.build_network), self.saved = self.saved, None
 
 
 def phase_train_cli(dev, gpu, power, path):
@@ -1346,43 +1514,12 @@ def phase_train_cli(dev, gpu, power, path):
     import tempfile
     import numpy as np
     import torch
-    from cagroup3d_tpu_torch.ops.segsum import segment_sums
-    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_dw
     from cagroup3d_tpu_torch.tools import test as test_cli
     from cagroup3d_tpu_torch.tools import train as cli
-    from cagroup3d_tpu_torch.training import train_loop
     from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
     names = list(path.cfg.CLASS_NAMES)
     B = int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     steps_per_epoch = CLI_SCENES // B
-    steps, loaders, models = [], [], []
-    make_step, build_loader, build_net = (train_loop.make_train_step,
-                                          cli.build_dataloader,
-                                          cli.build_network)
-
-    def recorded_step(*a, **kw):
-        step = make_step(*a, **kw)
-
-        def timed(batch, cur_epoch=0.0):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, tb = step(batch, cur_epoch)
-            torch.cuda.synchronize()
-            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                              loss=float(loss),
-                              tb={k: float(v) for k, v in tb.items()}))
-            return loss, tb
-        return timed
-
-    def recording_loader(**kw):
-        ds, loader, sampler = build_loader(**kw)
-        loaders.append(Recording(loader))
-        return ds, loaders[-1], sampler
-
-    def recording_net(*a, **kw):
-        models.append(build_net(*a, **kw))
-        return models[-1]
-
     cwd, t_phase, bad = os.getcwd(), time.time(), []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
         tree = os.path.join(tmp, path.name)
@@ -1390,38 +1527,31 @@ def phase_train_cli(dev, gpu, power, path):
                           n_points=N_POINTS, seed=1)
         data = ["--set", "DATA_CONFIG.DATA_PATH", tree]
         torch.cuda.empty_cache()
-        train_loop.make_train_step = recorded_step
-        cli.build_dataloader, cli.build_network = (recording_loader,
-                                                   recording_net)
-        sparse_conv.launches = sparse_conv_dw.launches = 0
-        segment_sums.launches = 0
+        launch_counts(reset=True)
         torch.cuda.reset_peak_memory_stats()
+        rec = TrainCliRecording()
         try:
             os.chdir(tmp)
+            rec.start()
             for epochs in (1, 2):
                 args, cfg = cli.parse_config(
                     ["--cfg_file", path.cfg_path, "--epochs", str(epochs),
                      *data, "DATA_CONFIG.REPEAT.train", "1"])
                 out = cli.main(args, cfg)
-            train_launches = {"sparse_conv": sparse_conv.launches,
-                              "sparse_conv_dw": sparse_conv_dw.launches,
-                              "segsum": segment_sums.launches}
+            train_launches = launch_counts()
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             ckpt = str(out / "ckpt" / "checkpoint_epoch_2.pkl")
-            model = models[-1]
-            models.clear()
+            model = rec.models[-1]
+            rec.models.clear()
             torch.cuda.empty_cache()
-            sparse_conv.launches = sparse_conv_dw.launches = 0
-            segment_sums.launches = 0
+            launch_counts(reset=True)
             targs, tcfg = test_cli.parse_config(
                 ["--cfg_file", path.cfg_path, "--ckpt", ckpt, *data])
             ret = test_cli.main(targs, tcfg)[ckpt]
-            eval_launches = {"sparse_conv": sparse_conv.launches,
-                             "segsum": segment_sums.launches}
+            eval_launches = launch_counts()
         finally:
             os.chdir(cwd)
-            train_loop.make_train_step = make_step
-            cli.build_dataloader, cli.build_network = build_loader, build_net
+            rec.stop()
         out = os.path.join(tmp, out)
         ckpts = {}
         for e in (1, 2):
@@ -1435,14 +1565,14 @@ def phase_train_cli(dev, gpu, power, path):
         with open(os.path.join(out, "metrics.jsonl")) as f:
             logged = [json.loads(ln) for ln in f]
     finite = all(np.isfinite([s["loss"], *s["tb"].values()]).all()
-                 for s in steps) and all(
+                 for s in rec.steps) and all(
         np.isfinite(v) for ln in logged for k, v in ln.items()
         if k.startswith("train/loss"))
-    if not finite or not steps or not logged:
+    if not finite or not rec.steps or not logged:
         bad.append("a step's or a logged loss is not finite, or none was "
                    "logged")
-    if len(steps) != 2 * steps_per_epoch:
-        bad.append(f"{len(steps)} steps, not {2 * steps_per_epoch}")
+    if len(rec.steps) != 2 * steps_per_epoch:
+        bad.append(f"{len(rec.steps)} steps, not {2 * steps_per_epoch}")
     its = {e: (c["epoch"], c["it"]) for e, c in ckpts.items()}
     if its != {1: (1, steps_per_epoch), 2: (2, 2 * steps_per_epoch)}:
         bad.append(f"checkpoint (epoch, it): {its}")
@@ -1462,16 +1592,17 @@ def phase_train_cli(dev, gpu, power, path):
            eval_launches["segsum"]) <= 0:
         bad.append(f"a kernel was not launched: train {train_launches}, "
                    f"eval {eval_launches}")
-    waits = [w * 1e3 for ld in loaders for w in ld.waits]
-    ms = [w + s["ms"] for w, s in zip(waits, steps)]
+    waits = [w * 1e3 for ld in rec.loaders for w in ld.waits]
+    ms = [w + s["ms"] for w, s in zip(waits, rec.steps)]
     emit({"phase": "train-cli", "config": path.name, "ok": not bad,
           "gpu": gpu, "power_limit": power, "scenes": CLI_SCENES,
           "points_per_scene": N_POINTS, "batch_size": B,
           "steps_per_epoch": steps_per_epoch, "ms_per_step": ms,
           "median_ms": float(np.median(ms)) if ms else None,
           "loader_share": sum(waits) / sum(ms) if ms else None,
-          "peak_memory_gb": peak_gb, "losses": [s["loss"] for s in steps],
-          "tb": steps[-1]["tb"] if steps else None,
+          "peak_memory_gb": peak_gb,
+          "losses": [s["loss"] for s in rec.steps],
+          "tb": rec.steps[-1]["tb"] if rec.steps else None,
           "checkpoints": its, "resumed": resumed,
           "train_launches": train_launches, "eval_launches": eval_launches,
           **{k: ret[k] for k in ("mAP_0.25", "mAP_0.50", "mAR_0.25",
@@ -1515,13 +1646,419 @@ def run_path(dev, gpu, power, path):
         train_launches=train_launches, cli_train=cli_train, cli_eval=cli_eval)
 
 
-def kernel_line(res):
+# ---------------------------------------------------------------------------
+# RBGNet (the PointNet2-FBS backbone and the ray-based-grouping head)
+# ---------------------------------------------------------------------------
+
+class RbgPath(Path):
+    """One RBGNet configuration (tools/cfgs/<dataset>_models/RBGNet.yaml):
+    its main path launches none of the kernels."""
+    kernels = False
+
+    def __init__(self, dataset, jax_learn_drop):
+        super().__init__(f"rbgnet_{dataset}", RBG_TRAIN_STEPS,
+                         jax_learn_drop, cfg_path=RBG_CFGS[dataset],
+                         dataset=dataset)
+
+    def _yaw(self):
+        return bool(self.cfg.MODEL.POINT_HEAD.BOX_CODER.WITH_ROT)
+
+    def detector(self):
+        from cagroup3d_tpu_torch.models.detectors.rbgnet import RBGNet
+        return RBGNet
+
+    def eval_model(self, dev):
+        return rbg_model(self.cfg.MODEL, self.n_cls, dev, seed=0)
+
+    def against_before(self, kind, name, f):
+        return {}
+
+
+def rbg_model(mc, n_cls, device, seed):
+    """A seeded RBGNet of the configuration ``mc`` (copied) through
+    ``build_network``."""
+    import torch
+    from cagroup3d_tpu_torch.models import build_network
+    return build_network(copy.deepcopy(mc), n_cls,
+                         generator=torch.Generator().manual_seed(seed),
+                         device=device)
+
+
+def launch_counts(reset=False):
+    """The kernels' launch counters (set to 0 first with ``reset``)."""
+    from cagroup3d_tpu_torch.ops.segsum import segment_sums
+    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_dw
+    fns = {"sparse_conv": sparse_conv, "sparse_conv_dw": sparse_conv_dw,
+           "segsum": segment_sums}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def rbg_stage_split(model, batch):
+    """One synchronized ``forward_eval``, ms per stage: the backbone (and
+    its FPS), the vote module with the aggregation and the predictions
+    (the head less the ray grouping), the ray grouping (and its FPS),
+    boxes with NMS."""
+    import torch
+    from cagroup3d_tpu_torch.core import pointnet2 as pn2
+    from cagroup3d_tpu_torch.models.dense_heads.rbg_head import \
+        RayBasedGrouping
+    ms, where = {}, ["other"]
+
+    def timed(name, fn, fps=False):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not fps:
+                outer, where[0] = where[0], name
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                key = f"{where[0]}_fps" if fps else name
+                ms[key] = ms.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+                if not fps:
+                    where[0] = outer
+        return run
+
+    head, bb = model.point_head, model.backbone_3d
+    fps, rbg_call = pn2.farthest_point_sample, RayBasedGrouping.__call__
+    pn2.farthest_point_sample = timed("fps", fps, fps=True)
+    RayBasedGrouping.__call__ = timed("ray_grouping", rbg_call)
+    bb.forward = timed("backbone", bb.forward)
+    head.forward = timed("head", head.forward)
+    head.generate_predicted_boxes = timed("boxes_nms",
+                                          head.generate_predicted_boxes)
+    try:
+        timed("total", model.forward_eval)(batch)
+    finally:
+        pn2.farthest_point_sample, RayBasedGrouping.__call__ = fps, rbg_call
+        for m, name in ((bb, "forward"), (head, "forward"),
+                        (head, "generate_predicted_boxes")):
+            del m.__dict__[name]
+    ms["vote_aggregation_predictions"] = ms.pop("head") - ms["ray_grouping"]
+    ms["fps_total"] = sum(v for k, v in ms.items() if k.endswith("_fps"))
+    ms["fps_share"] = ms["fps_total"] / ms["total"]
+    return ms
+
+
+def phase_rbg_requests(model, dev, gpu, power, path):
+    """rbgnet-requests: a warm-up and three 100k-point scenes through
+    ``forward_eval`` at batch 1, launch counters reset; outputs finite of
+    the expected shapes, headed boxes on SUN RGB-D, no kernel launched;
+    then one synchronized stage split.  Returns the launch counts."""
+    import torch
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    reqs = [synthetic_request(seed, dev, N_POINTS, **path.scene)
+            for seed in (3, 0, 1, 2)]
+    t0 = time.time()
+    model.forward_eval(reqs[0])
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    launch_counts(reset=True)
+    lat_ms, outs = [], []
+    for batch in reqs[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(model.forward_eval(batch))
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    head = model.point_head
+    M, bad = min(model.max_out, head.num_classes * head.num_proposal), []
+    for out in outs:
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        if shapes != {"pred_boxes": (1, M, 7), "pred_scores": (1, M),
+                      "pred_labels": (1, M), "pred_valid": (1, M)}:
+            bad.append(f"bad output shapes {shapes}")
+        if not all(bool(torch.isfinite(v.float()).all())
+                   for v in out.values()):
+            bad.append("non-finite outputs")
+    valid = [o["pred_valid"][0] for o in outs]
+    headed = [int((o["pred_boxes"][0, v, 6] != 0).sum())
+              for o, v in zip(outs, valid)]
+    if path.yaw and not any(headed):
+        bad.append("the SUN RGB-D configuration returned no headed box")
+    if path.launches_bad(launches):
+        bad.append(f"a kernel was launched on RBGNet's path: {launches}")
+    split = rbg_stage_split(model, reqs[1])
+    emit({"phase": "rbgnet-requests", "config": path.name, "ok": not bad,
+          "gpu": gpu, "power_limit": power, "scenes": 3,
+          "points_per_scene": N_POINTS, "warm_up_seconds": warm_s,
+          "ms_per_scene": lat_ms, "median_ms": sorted(lat_ms)[1],
+          "launches": launches, "detections": [int(v.sum()) for v in valid],
+          "headed_detections": headed, "stage_ms": split})
+    if bad:
+        fail("rbgnet-requests", "; ".join(bad))
+    return launches
+
+
+def phase_rbg_train_cli(dev, gpu, power, path):
+    """rbgnet-train-cli: the ``train`` CLI in this process for one epoch
+    over a CLI_SCENES-scene 100k-point tree with REPEAT.train 1 (one step
+    at the YAML's B = 8) with the model as users build it.  Held: the
+    step's loss and tb finite, the checkpoint's epoch and it (1, 1) and
+    its keys the model's parameters and buffers, the model on the card, no
+    kernel launched.  Printed: ms per step (loader wait plus step) and the
+    peak GB.  Resume does not depend on the model; it is held on
+    CAGroup3D's paths (phase 7c)."""
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.tools import train as cli
+    from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
+    B = int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    cwd, t_phase, bad = os.getcwd(), time.time(), []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rbg_train_") as tmp:
+        tree = os.path.join(tmp, path.name)
+        write_indoor_tree(tree, path.dataset, list(path.cfg.CLASS_NAMES),
+                          CLI_SCENES, n_points=N_POINTS, seed=1)
+        torch.cuda.empty_cache()
+        launch_counts(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        rec = TrainCliRecording()
+        try:
+            os.chdir(tmp)
+            rec.start()
+            args, cfg = cli.parse_config(
+                ["--cfg_file", path.cfg_path, "--epochs", "1", "--set",
+                 "DATA_CONFIG.DATA_PATH", tree, "DATA_CONFIG.REPEAT.train",
+                 "1"])
+            out = os.path.join(tmp, cli.main(args, cfg))
+            launches = launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            os.chdir(cwd)
+            rec.stop()
+        with open(os.path.join(out, "ckpt", "checkpoint_epoch_1.pkl"),
+                  "rb") as f:
+            ckpt = pickle.load(f)
+    steps, model = rec.steps, rec.models[-1]
+    n_steps = CLI_SCENES // B
+    if len(steps) != n_steps or not all(
+            np.isfinite([s["loss"], *s["tb"].values()]).all() for s in steps):
+        bad.append(f"{len(steps)} steps (not {n_steps}) or a non-finite "
+                   f"loss")
+    if (ckpt["epoch"], ckpt["it"]) != (1, n_steps):
+        bad.append(f"checkpoint (epoch, it) {(ckpt['epoch'], ckpt['it'])}")
+    if set(ckpt["params"]) != {k for k, _ in model.named_parameters()} or \
+            set(ckpt["state"]) != {k for k, _ in model.named_buffers()}:
+        bad.append("the checkpoint's keys differ from the model's")
+    if not next(model.parameters()).is_cuda:
+        bad.append("the model was not on the card")
+    if path.launches_bad(launches):
+        bad.append(f"a kernel was launched on RBGNet's path: {launches}")
+    waits = [w * 1e3 for ld in rec.loaders for w in ld.waits]
+    ms = [w + s["ms"] for w, s in zip(waits, steps)]
+    emit({"phase": "rbgnet-train-cli", "config": path.name, "ok": not bad,
+          "gpu": gpu, "power_limit": power, "scenes": CLI_SCENES,
+          "points_per_scene": N_POINTS, "batch_size": B, "ms_per_step": ms,
+          "loader_share": sum(waits) / sum(ms) if ms else None,
+          "peak_memory_gb": peak_gb, "losses": [s["loss"] for s in steps],
+          "tb": steps[-1]["tb"] if steps else None, "launches": launches,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("rbgnet-train-cli", "; ".join(bad))
+    return launches
+
+
+class Discrete:
+    """Inside ``with``: the port's FPS and ball queries (``core.pointnet2``)
+    recorded in call order (``replay=False``), or, replaying, each call's
+    own result compared with the recorded one (differing entries counted
+    in ``flips``) and the recorded one returned on the call's device, so
+    that the stage downstream sees the recorded run's discrete steps."""
+
+    def __init__(self):
+        self.calls, self.flips, self.replay, self.i = [], {}, False, 0
+
+    def start(self, replay):
+        """Record a new run (``replay=False``) or replay the last one."""
+        self.replay, self.i = replay, 0
+        if not replay:
+            self.calls = []
+        return self
+
+    def __enter__(self):
+        from cagroup3d_tpu_torch.core import pointnet2 as pn2
+        self.pn2 = pn2
+        self.orig = {n: getattr(pn2, n) for n in ("farthest_point_sample",
+                                                  "ball_query")}
+        for n, fn in self.orig.items():
+            setattr(pn2, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.pn2, n, fn)
+
+    def _wrap(self, name, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            got = out if isinstance(out, tuple) else (out,)
+            if not self.replay:
+                self.calls.append(tuple(t.cpu() for t in got))
+                return out
+            ref = self.calls[self.i]
+            self.i += 1
+            self.flips[name] = self.flips.get(name, 0) + sum(
+                int((g.cpu() != r).sum()) for g, r in zip(got, ref))
+            ref = tuple(r.to(got[0].device) for r in ref)
+            return ref if isinstance(out, tuple) else ref[0]
+        return run
+
+
+def phase_rbg_reference(dev, path, seed=3):
+    """rbgnet-reference: the tiny configuration (``TINY_RBG`` widths on the
+    YAML) on the card against the same model on the CPU, stage by stage on
+    the same inputs at phase 7's bars (boxes 1e-2, scores 1e-3): the
+    backbone with the CPU's FPS and ball-query results injected (the
+    card's own counted where they differ), the head on the CPU's backbone
+    outputs (the same injection; the intersection classifier's gating
+    argmax counted where it differs), the boxes on the CPU's head
+    outputs.  Then the whole forward without injection: held when no
+    discrete step (FPS, radius, gating argmax) parted the stages, printed
+    otherwise."""
+    import torch
+    from cagroup3d_tpu_torch.core.module import Ctx, flat_state
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    tc = tiny_rbg_model(copy.deepcopy(path.cfg.MODEL))
+    cpu_m = rbg_model(tc, path.n_cls, "cpu", seed=1)
+    gpu_m = copy.deepcopy(cpu_m).to(dev)
+    req = synthetic_request(seed, "cpu", **dict(TINY_SCENE, **path.scene))
+    pts, pv = req["points"], req["points_valid"]
+    rec, stages, res = Discrete(), {}, {}
+    box_like = ("fp_xyz", "center", "vote_points", "aggregated_points",
+                "seed_points", "boxes")
+    with torch.no_grad(), rec:
+        for name, m, d in (("cpu", cpu_m, "cpu"), ("gpu", gpu_m, dev)):
+            P, S = flat_state(m)
+            rec.start(replay=name == "gpu")
+            res[name] = m.backbone_3d(P, S, Ctx(), pts[..., :3].to(d),
+                                      pts[..., 3:6].to(d) / 255.0, pv.to(d))
+        bb = res["cpu"]
+        keys = ("fp_xyz", "fp_features", "fp_valid", "fp_indices")
+        stages["backbone"] = agree({k: res["gpu"][k] for k in keys},
+                                   {k: bb[k] for k in keys},
+                                   ("fp_valid", "fp_indices"), box_like)
+        for name, m, d in (("cpu", cpu_m, "cpu"), ("gpu", gpu_m, dev)):
+            P, S = flat_state(m)
+            rec.start(replay=name == "gpu")
+            res[name] = m.point_head(P, S, Ctx(), {
+                k: v.to(d) if torch.is_tensor(v) else v
+                for k, v in bb.items()})
+        head = res["cpu"]
+        keys = [k for k in head if k != "ray_fps_idx"]
+        stages["head"] = agree({k: res["gpu"][k] for k in keys},
+                               {k: head[k] for k in keys},
+                               ("seed_valid",), box_like)
+        gating = {k: int((res["gpu"][k].argmax(-1).cpu() !=
+                          head[k].argmax(-1)).sum())
+                  for k in ("coarse_intersec_score", "fine_intersec_score")}
+        for name, m, d in (("cpu", cpu_m, "cpu"), ("gpu", gpu_m, dev)):
+            res[name] = dict(zip(("boxes", "scores", "labels", "valid"),
+                                 m.point_head.generate_predicted_boxes(
+                {k: v.to(d) for k, v in head.items()}, pts[..., :3].to(d),
+                pv.to(d), max_out=m.max_out)))
+        stages["boxes"] = agree(res["gpu"], res["cpu"], ("labels", "valid"),
+                                box_like)
+    flips = dict(rec.flips, gating=sum(gating.values()))
+    ref = cpu_m.forward_eval(req)
+    got = gpu_m.forward_eval({k: v.to(dev) for k, v in req.items()})
+    pred = ("pred_valid", "pred_labels", "pred_boxes", "pred_scores")
+    whole = agree({k: got[k] for k in pred}, {k: ref[k] for k in pred},
+                  pred[:2], pred[2:3])
+    held = not any(flips.values())
+    ok = all(st["ok"] for st in stages.values()) and (whole["ok"] or
+                                                      not held)
+    emit({"phase": "rbgnet-reference", "config": path.name, "ok": ok,
+          "detections": int(ref["pred_valid"].sum()),
+          "discrete_flips": flips, "whole_forward": whole,
+          "whole_forward_held": held, "stages": stages})
+    if not ok or int(ref["pred_valid"].sum()) == 0:
+        fail("rbgnet-reference", "card and CPU disagree on the tiny RBGNet")
+
+
+def rbg_learn_loss(tb):
+    """The part of RBGNet's loss that every step carries: the vote,
+    objectness and foreground-sampling terms of its ``tb``.  The box terms
+    (the Chamfer center's proposal side, size, heading, scale, semantic,
+    IoU and intersection) are means over the positive proposals and 0
+    while none is positive, so the whole loss jumps between two levels as
+    the tiny model's proposals turn positive and back, in both packages."""
+    return float(tb["vote_loss"]) + float(tb["objectness_loss"]) + sum(
+        float(v) for k, v in tb.items() if k.startswith("sample_loss_"))
+
+
+def rbg_drop(curve):
+    """RBGNet's learn drop: 1 - the median of the curve's second half / its
+    first value, over ``rbg_learn_loss`` values."""
+    return 1.0 - statistics.median(curve[len(curve) // 2:]) / curve[0]
+
+
+def phase_rbg_learn(dev, path):
+    """rbgnet-learn: the tiny configuration trained from the same weights
+    on each of the RBG_LEARN_SEEDS fixed B = 2 batches for RBG_LEARN_STEPS
+    steps: the mean drop (``rbg_drop``) of the loss's ungated part
+    (``rbg_learn_loss``) is at least nine tenths of the JAX package's in
+    the same setting (``tests/learn_margin.py --rbgnet [--yaw]``).  The
+    whole loss is printed beside it."""
+    import torch
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    tc = tiny_rbg_model(copy.deepcopy(path.cfg.MODEL))
+    curves, losses = [], []
+    for seed in RBG_LEARN_SEEDS:
+        m = rbg_model(tc, path.n_cls, "cpu", seed=1).to(dev)
+        opt, _ = build_optimizer(m, path.cfg.OPTIMIZATION, STEPS_PER_EPOCH)
+        step = make_train_step(m, opt, torch.Generator().manual_seed(0),
+                               device=dev)
+        batch = synthetic_train_batch(seed, dev, 2, **path.scene,
+                                      **TINY_TRAIN_SCENE)
+        runs = [step(batch, 0.0) for _ in range(RBG_LEARN_STEPS)]
+        losses.append([float(loss) for loss, _ in runs])
+        curves.append([rbg_learn_loss(tb) for _, tb in runs])
+    drops = [rbg_drop(c) for c in curves]
+    drop = sum(drops) / len(drops)
+    margin = 0.9 * path.jax_learn_drop
+    ok = all(x == x for c in losses for x in c) and drop >= margin
+    emit({"phase": "rbgnet-learn", "config": path.name, "ok": ok,
+          "steps": RBG_LEARN_STEPS, "seeds": list(RBG_LEARN_SEEDS),
+          "drops": drops, "drop": drop, "required_drop": margin,
+          "ungated_losses": curves, "losses": losses})
+    if not ok:
+        fail("rbgnet-learn", f"the ungated loss fell by {drop:.3f}, less "
+                             f"than nine tenths of the JAX package's "
+                             f"{path.jax_learn_drop}")
+
+
+def run_rbg_path(dev, gpu, power, path):
+    """RBGNet's phases on one configuration at full width.  Returns the
+    kernels' launches summed over its runs (all 0)."""
+    import torch
+    model = rbg_model(path.cfg.MODEL, path.n_cls, dev, seed=0)
+    runs = [phase_rbg_requests(model, dev, gpu, power, path),
+            phase_test_cli(dev, gpu, power, path)]
+    runs.append(phase_train(model, dev, gpu, power, path))
+    del model
+    torch.cuda.empty_cache()
+    runs.append(phase_rbg_train_cli(dev, gpu, power, path))
+    phase_rbg_reference(dev, path)
+    phase_rbg_learn(dev, path)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def kernel_line(res, rbg):
     """The ``kernels`` line: each kernel's launches summed over the paths'
     main-path runs (K1, K3: the timed training steps; K2: the requests)
     and, as ``train_cli_launches``, over the ``train`` CLI's runs (K1, K3:
-    its steps; K2: the ``test`` CLI on its checkpoint), its largest error
-    over every replay, and its times from the ScanNet path, with each
-    path's own beside them."""
+    its steps; K2: the ``test`` CLI on its checkpoint), and, as
+    ``rbgnet_launches``, over every RBGNet run (none launches a kernel);
+    its largest error over every replay, and its times from the ScanNet
+    path, with each path's own beside them."""
     def times(st):
         return {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
@@ -1543,13 +2080,14 @@ def kernel_line(res):
                     train_cli_launches=r["cli_train"]["sparse_conv_dw"])
 
     out = []
-    for name, fn, src, line, err in (
+    for name, fn, src, line, err, counter in (
             ("K1 sparse_conv", k1, "sparse_conv.cu", "pallas_conv.py:124",
-             lambda r: max(r["k1_train"]["max_abs"], r["k1_eval_max_abs"])),
+             lambda r: max(r["k1_train"]["max_abs"], r["k1_eval_max_abs"]),
+             "sparse_conv"),
             ("K2 segsum", k2, "segsum.cu", "pallas_segsum.py:64",
-             lambda r: r["k2"]["max_abs"]),
+             lambda r: r["k2"]["max_abs"], "segsum"),
             ("K3 sparse_conv_dw", k3, "sparse_conv.cu", "pallas_conv.py:472",
-             lambda r: r["k3_train"]["max_abs"])):
+             lambda r: r["k3_train"]["max_abs"], "sparse_conv_dw")):
         paths = {p: fn(r) for p, r in res.items()}
         out.append({"name": name, "route": "cuda",
                     "source": "cagroup3d_tpu_torch/csrc/" + src,
@@ -1558,6 +2096,7 @@ def kernel_line(res):
                     "launches": sum(v["launches"] for v in paths.values()),
                     "train_cli_launches": sum(v["train_cli_launches"]
                                               for v in paths.values()),
+                    "rbgnet_launches": sum(r[counter] for r in rbg.values()),
                     "max_abs_err": max(err(r) for r in res.values()),
                     "paths": paths})
     return {"kernels": out}
@@ -1610,7 +2149,12 @@ def main():
     for path in (Path("scannet", TRAIN_STEPS, JAX_LEARN_DROP),
                  Path("sunrgbd", TRAIN_STEPS_YAW, JAX_LEARN_DROP_YAW)):
         res[path.name] = run_path(dev, gpu, power, path)
-    emit(kernel_line(res))
+    # RBGNet on each configuration ----------------------------------------
+    rbg = {}
+    for path in (RbgPath("scannet", JAX_LEARN_DROP_RBG),
+                 RbgPath("sunrgbd", JAX_LEARN_DROP_RBG_YAW)):
+        rbg[path.name] = run_rbg_path(dev, gpu, power, path)
+    emit(kernel_line(res, rbg))
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 profile_port.py [--config scannet|sunrgbd] [--scenes 9]
-        [--out profile.json]
+    python3 profile_port.py [--config scannet|sunrgbd|rbgnet_scannet|
+        rbgnet_sunrgbd] [--scenes 9] [--out profile.json]
 
 It builds the configuration of ``chip_smoke.py`` (full-width CAGroup3D of
 the ``--config`` YAML -- ScanNet, or SUN RGB-D on headed scenes --,
@@ -20,11 +20,11 @@ prior lifted), answers three warm-up 100k-point scenes (synthetic seeds
    stage holds the head's greedy NMS, the RoI head stage the final one;
    ``nms_head`` and ``nms_roi`` are those two calls alone.
 3. device  -- ``torch.profiler`` over three scenes, CUDA kernel rows only:
-   kernel ms and kernel launches per scene, K1 and K2 kernel ms per
-   scene (every pass of each), the ten largest kernels, and the busy
-   share = kernel ms per
-   scene / median wall ms of phase 1 (one stream, so kernels do not
-   overlap).  Also the peak device memory of the run.
+   kernel ms and kernel launches per scene, K1, K2 and K3 kernel ms and
+   launches per scene (every pass of each), the ten largest kernels, and
+   the busy share = kernel ms per scene / median wall ms of phase 1 (one
+   stream, so kernels do not overlap).  Also the peak device memory of
+   the run.
 4. bits    -- two direct ``forward_eval`` calls on scene 0: whether
    their outputs are the same bits and, if not, the first recorded stage
    or float-summing op whose outputs differ, and whether its inputs were
@@ -39,6 +39,14 @@ prior lifted), answers three warm-up 100k-point scenes (synthetic seeds
    launches, K3's ms per pass (prep, map, scan, fill, gemm, reduce), busy
    share = kernel ms / step ms, the ten largest kernels, and the peak
    device memory.
+
+``--config rbgnet_scannet`` / ``rbgnet_sunrgbd`` profiles the YAML's
+full-width RBGNet instead (seeded, ``chip_smoke.rbg_model``), with three
+warm-up scenes: ``wall`` as above; ``stages``, the median ms of
+``chip_smoke.rbg_stage_split`` (backbone and its FPS, vote module with
+aggregation and predictions, ray grouping and its FPS, boxes and NMS);
+``device`` and ``train`` (the YAML's B = 8 step) as above; none of K1,
+K2 and K3 runs on RBGNet's path.
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -154,9 +162,162 @@ def two_calls(model, batch):
     return False, None
 
 
+def kernel_rows(prof):
+    """{kernel name: [ms, launches]} of a profile's CUDA kernel rows."""
+    kernels = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            k = kernels[e.name]
+            k[0] += e.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    return kernels
+
+
+def kernel_summary(kernels, n, wall_ms, unit):
+    """Kernel ms and launches per ``unit`` (over ``n`` of them), the hand-
+    written kernels' ms and launches (K3's ms by pass too), the busy share
+    against ``wall_ms`` and the ten largest kernels."""
+    total_ms = sum(v[0] for v in kernels.values()) / n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    hand = {}
+    for k, part in (("k1", K1_NAME), ("k2", K2_NAME), ("k3", K3_NAME)):
+        rows = [v for name, v in kernels.items() if part in name]
+        hand[f"{k}_ms_per_{unit}"] = sum(v[0] for v in rows) / n
+        hand[f"{k}_launches_per_{unit}"] = sum(v[1] for v in rows) / n
+    k3_pass = defaultdict(float)
+    for name, v in kernels.items():
+        m = re.search(K3_NAME + r"(\w+)", name)
+        if m:
+            k3_pass[m.group(1)] += v[0] / n
+    return {f"kernel_ms_per_{unit}": total_ms if kernels else "not measured",
+            f"kernel_launches_per_{unit}":
+                sum(v[1] for v in kernels.values()) / n,
+            **hand, "k3_ms_by_pass": dict(k3_pass),
+            "busy_share": (total_ms / wall_ms if kernels
+                           else "not measured"),
+            "top_kernels": [{"name": name[:80], f"ms_per_{unit}": v[0] / n,
+                             f"launches_per_{unit}": v[1] / n}
+                            for name, v in top]}
+
+
+def wall_phase(forward, batches, n, card, log):
+    """1. wall: ``forward`` over ``n`` scenes (``batches`` cycling), host
+    clock around a synchronized call.  Returns the median ms."""
+    import torch
+    wall = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(wall)
+    emit({"phase": "wall", **card, "ms_per_scene": wall, "median_ms": med},
+         log)
+    return med
+
+
+def device_phase(forward, batches, wall_ms, card, dev, log):
+    """3. device: ``torch.profiler`` over one ``forward`` of each batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            forward(b)
+        torch.cuda.synchronize()
+    emit({"phase": "device", **card, "scenes": len(batches),
+          **kernel_summary(kernel_rows(prof), len(batches), wall_ms,
+                           "scene"),
+          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
+
+
+def train_phase(forward, opt, batches, B, steps, card, dev, log):
+    """5. train: the ``B``-scene training step whose forward is ``forward``
+    (batch -> loss), after one warm-up step: ``steps`` steps split into forward,
+    ``backward()`` and the optimizer update, each bracketed by
+    synchronizations (host clock), then ``torch.profiler`` over one
+    more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    split = defaultdict(list)
+
+    def train_step(batch):
+        opt.zero_grad()
+        for part in ("forward", "backward", "update"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if part == "forward":
+                loss = forward(batch)
+            elif part == "backward":
+                loss.backward()
+            else:
+                opt.step()
+            torch.cuda.synchronize()
+            split[part].append((time.perf_counter() - t0) * 1e3)
+        split["step"].append(sum(split[k][-1] for k in
+                                 ("forward", "backward", "update")))
+
+    train_step(batches[0])                              # warm-up
+    split.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(steps):
+        train_step(batches[i % len(batches)])
+    med = {k: statistics.median(v) for k, v in split.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(batches[-1])
+        torch.cuda.synchronize()
+    emit({"phase": "train", **card,
+          "scenes_per_step": B,
+          "steps": steps, "median_ms": med,
+          **kernel_summary(kernel_rows(prof), 1, med["step"], "step"),
+          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
+
+
+def profile_rbgnet(args, card, dev, log):
+    """The ``--config rbgnet_*`` phases (module docstring)."""
+    import torch
+    from chip_smoke import (N_POINTS, RBG_CFGS, STEPS_PER_EPOCH, rbg_model,
+                            rbg_stage_split, synthetic_train_batch)
+    from cagroup3d_tpu_torch.models import load_config
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    dataset = args.config.split("_", 1)[1]
+    cfg = load_config(RBG_CFGS[dataset])
+    names = cfg.CLASS_NAMES
+    model = rbg_model(cfg.MODEL, len(names), dev, seed=0)
+    scene = dict(n_classes=len(names),
+                 yaw=bool(cfg.MODEL.POINT_HEAD.BOX_CODER.WITH_ROT))
+    batches = [synthetic_request(s, dev, N_POINTS, **scene)
+               for s in (0, 1, 2)]
+    for b in batches:                                   # warm-up
+        model.forward_eval(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    wall_med = wall_phase(model.forward_eval, batches, args.scenes, card,
+                          log)
+    splits = [rbg_stage_split(model, batches[i % 3])
+              for i in range(args.scenes)]
+    emit({"phase": "stages", **card, "scenes": args.scenes,
+          "median_ms": {k: statistics.median(s[k] for s in splits)
+                        for k in splits[0]}}, log)
+    device_phase(model.forward_eval, batches, wall_med, card, dev, log)
+
+    opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH)
+    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tb = [synthetic_train_batch(20 + i, dev, B, N_POINTS, **scene)
+          for i in range(2)]
+    train_phase(lambda b: model.forward_train(b)[0], opt, tb, B,
+                args.train_steps, card, dev, log)
+    return log
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("scannet", "sunrgbd"),
+    ap.add_argument("--config", choices=("scannet", "sunrgbd",
+                                         "rbgnet_scannet", "rbgnet_sunrgbd"),
                     default="scannet")
     ap.add_argument("--scenes", type=int, default=9)
     ap.add_argument("--train-steps", type=int, default=3)
@@ -187,6 +348,10 @@ def main():
     card = dict(gpu=torch.cuda.get_device_name(0),
                 power_limit=smi[0].split(",")[-1].strip() if smi else None)
 
+    if args.config.startswith("rbgnet_"):
+        card["config"] = args.config
+        profile_rbgnet(args, card, dev, log)
+        return write(log, args.out)
     cfg = load_config(CFGS[args.config])
     mc, names = cfg.MODEL, cfg.CLASS_NAMES
     mc.INPUT_CAP = INPUT_CAP
@@ -202,15 +367,9 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
 
     # 1. wall -------------------------------------------------------------
-    wall = []
-    for i in range(args.scenes):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.forward_eval(batches[i % 3], cur_epoch=10)
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    emit({"phase": "wall", **card, "ms_per_scene": wall,
-          "median_ms": statistics.median(wall)}, log)
+    def forward(b):
+        return model.forward_eval(b, cur_epoch=10)
+    wall_med = wall_phase(forward, batches, args.scenes, card, log)
 
     # 2. stages -------------------------------------------------------------
     times = defaultdict(list)
@@ -243,34 +402,7 @@ def main():
           "median_ms": med, "sum_of_stage_medians_ms": stage_sum}, log)
 
     # 3. device -------------------------------------------------------------
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for b in batches[:n_prof]:
-            model.forward_eval(b, cur_epoch=10)
-        torch.cuda.synchronize()
-    kernels = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            k = kernels[e.name]
-            k[0] += e.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    total_ms = sum(v[0] for v in kernels.values()) / n_prof
-    n_launch = sum(v[1] for v in kernels.values()) / n_prof
-    k1 = sum(v[0] for n, v in kernels.items() if K1_NAME in n)
-    k2 = sum(v[0] for n, v in kernels.items() if K2_NAME in n)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "device", **card, "scenes": n_prof,
-          "kernel_ms_per_scene": total_ms if kernels else "not measured",
-          "kernel_launches_per_scene": n_launch,
-          "k1_ms_per_scene": k1 / n_prof, "k2_ms_per_scene": k2 / n_prof,
-          "busy_share": (total_ms / statistics.median(wall)
-                         if kernels else "not measured"),
-          "top_kernels": [{"name": n[:80], "ms_per_scene": v[0] / n_prof,
-                           "launches_per_scene": v[1] / n_prof}
-                          for n, v in top],
-          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
+    device_phase(forward, batches, wall_med, card, dev, log)
 
     # 4. bits -------------------------------------------------------------
     same, apart = two_calls(model, batches[0])
@@ -291,70 +423,16 @@ def main():
     B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     tb = [synthetic_train_batch(20 + i, dev, B, N_POINTS, **scene)
           for i in range(2)]
-    split = defaultdict(list)
+    train_phase(lambda b: model.forward_train(b, gen)[0], opt, tb, B,
+                args.train_steps, card, dev, log)
+    return write(log, args.out)
 
-    def train_step(batch):
-        opt.zero_grad()
-        for part in ("forward", "backward", "update", "step"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if part == "forward":
-                loss = model.forward_train(batch, gen)[0]
-            elif part == "backward":
-                loss.backward()
-            elif part == "update":
-                opt.step()
-            torch.cuda.synchronize()
-            split[part].append((time.perf_counter() - t0) * 1e3)
-        split["step"][-1] = sum(split[k][-1] for k in
-                                ("forward", "backward", "update"))
 
-    train_step(tb[0])                                   # warm-up
-    split.clear()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(args.train_steps):
-        train_step(tb[i % 2])
-    step_med = statistics.median(split["step"])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train_step(tb[1])
-        torch.cuda.synchronize()
-    kernels = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            k = kernels[e.name]
-            k[0] += e.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    total_ms = sum(v[0] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    k3_pass = defaultdict(float)
-    for n, v in kernels.items():
-        m = re.search(K3_NAME + r"(\w+)", n)
-        if m:
-            k3_pass[m.group(1)] += v[0]
-    emit({"phase": "train", **card, "scenes_per_step": B,
-          "steps": args.train_steps,
-          "median_ms": {k: statistics.median(v) for k, v in split.items()},
-          "kernel_ms_per_step": total_ms if kernels else "not measured",
-          "kernel_launches_per_step": sum(v[1] for v in kernels.values()),
-          "k1_ms_per_step": sum(v[0] for n, v in kernels.items()
-                                if K1_NAME in n),
-          "k3_ms_per_step": sum(v[0] for n, v in kernels.items()
-                                if K3_NAME in n),
-          "k1_launches_per_step": sum(v[1] for n, v in kernels.items()
-                                      if K1_NAME in n),
-          "k3_launches_per_step": sum(v[1] for n, v in kernels.items()
-                                      if K3_NAME in n),
-          "k3_ms_by_pass": dict(k3_pass),
-          "busy_share": (total_ms / step_med if kernels
-                         else "not measured"),
-          "top_kernels": [{"name": n[:80], "ms_per_step": v[0],
-                           "launches_per_step": v[1]} for n, v in top],
-          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, log)
-
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+def write(log, out):
+    """Every phase's JSON to ``out`` too, when given."""
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             json.dump(log, f, indent=1)
     return 0
 

@@ -257,8 +257,8 @@ def test_main_path_sources_are_key_sorted(setup, monkeypatch):
 
 def test_port_imports_no_jax():
     """The port's tiny eval forward and one tiny training step, ScanNet and
-    SUN RGB-D (the yaw path, headed GT boxes), run in a process where jax
-    and the JAX package are blocked."""
+    SUN RGB-D (the yaw path, headed GT boxes), of CAGroup3D and of RBGNet,
+    run in a process where jax and the JAX package are blocked."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['cagroup3d_tpu'] = None\n"
@@ -303,6 +303,23 @@ def test_port_imports_no_jax():
         "    assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
         "    assert ('rcnn_loss_iou' in tb) == yaw, tb\n"
         "    assert opt.count == 1\n"
+        "import cagroup3d_tpu_torch.core.pointnet2\n"
+        "import cagroup3d_tpu_torch.models.detectors.rbgnet\n"
+        "from chip_smoke import tiny_rbg_model\n"
+        "for name in ('scannet', 'sunrgbd'):\n"
+        "    cfg = load_config(f'tools/cfgs/{name}_models/RBGNet.yaml')\n"
+        "    names = cfg.CLASS_NAMES\n"
+        "    m = build_network(tiny_rbg_model(cfg.MODEL), len(names), "
+        "device='cpu')\n"
+        "    b = synthetic_train_batch(0, 'cpu', 2, n_points=1000, "
+        "room=(3., 3., 2.5), n_objects=4, n_classes=len(names), "
+        "yaw=name == 'sunrgbd')\n"
+        "    out = m.forward_eval({k: b[k][:1] for k in ('points', "
+        "'points_valid')})\n"
+        "    assert torch.isfinite(out['pred_boxes']).all()\n"
+        "    opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 10)\n"
+        "    tb = make_train_step(m, opt, device='cpu')(b)[1]\n"
+        "    assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")
