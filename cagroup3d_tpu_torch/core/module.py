@@ -31,7 +31,8 @@ class Ctx:
     stream (an explicit CPU ``torch.Generator``: its draws do not depend on
     the device the model runs on), the BN running-stat ``updates`` of a
     training forward, the step's ``SceneSync`` (BN statistics pooled over
-    the scenes of a step) with this scene's index, the training
+    the scenes of a step, and over the ranks' scenes with ``--dist``)
+    with this scene's index, the training
     ``drop_offset`` of the capacity windows, capacity-overflow counters and
     a cache of coordinate reductions keyed by the identity of the reduced
     coords."""
@@ -179,12 +180,13 @@ def init_linear(P: Params, gen: torch.Generator, path: str, cin: int,
 # ---------------------------------------------------------------------------
 
 def apply_bn(P: Params, S: Params, ctx: Ctx, path: str, x: torch.Tensor,
-             mask: torch.Tensor, eps: float = 1e-5,
-             momentum: float = 0.1) -> torch.Tensor:
+             mask: torch.Tensor, eps: float = 1e-5, momentum: float = 0.1,
+             scene_axis: bool = False) -> torch.Tensor:
     """Masked BN of x [..., N, C] under ``path``.  Per-class stacks pass
     x [n_cls, N, C] with [n_cls, C] parameters (each class its own
-    statistics).  Training records the new running stats in
-    ``ctx.updates``."""
+    statistics); ``scene_axis``: x [B, N, C] holds B scenes whose rows
+    share the statistics (``masked_batch_stats``).  Training records the
+    new running stats in ``ctx.updates``."""
     w, b = P[path + ".weight"], P[path + ".bias"]
     rm, rv = S[path + ".running_mean"], S[path + ".running_var"]
     if w.dim() == 2:                      # per-class [n_cls, C] stacks
@@ -193,7 +195,7 @@ def apply_bn(P: Params, S: Params, ctx: Ctx, path: str, x: torch.Tensor,
     if ctx.train:
         stats, (nrm, nrv) = masked_batch_stats(
             x, mask, rm, rv, momentum=momentum, sync=ctx.sync,
-            scene=ctx.scene)
+            scene=ctx.scene, scene_axis=scene_axis)
         shape = S[path + ".running_mean"].shape
         ctx.updates[path + ".running_mean"] = nrm.reshape(shape)
         ctx.updates[path + ".running_var"] = nrv.reshape(shape)

@@ -4,7 +4,9 @@ Counterpart of ``cagroup3d_tpu/core/pooling.py``:
 
 * avg_pool: ME ``MinkowskiAvgPooling(kernel_size=k, stride=s)`` for the
   DAPPM pyramid with k == 2*s + 1, so each input voxel lies in the window
-  of at most 3^3 output cells; the mean is over the inputs present.
+  of at most 3^3 output cells; the mean is over the inputs present, each
+  cell's sum in a fixed order (``gather.segment_sum``; the JAX package's
+  membership matmul fixes its order too).
 * interpolate_at: ME ``features_at_coordinates``, trilinear on the source
   stride lattice; absent corners contribute zero without renormalization.
 """
@@ -15,7 +17,7 @@ import itertools
 import numpy as np
 import torch
 
-from .gather import take_rows_masked
+from .gather import segment_sum, take_rows_masked
 from .hashing import build_index, lookup
 from .sparse import SparseTensor, zero_invalid
 from .voxelize import floor_div, stride_reduce_coords
@@ -38,18 +40,19 @@ def avg_pool(src: SparseTensor, kernel_size: int, factor: int,
     base = floor_div(src.coords, lattice)
     feats = src.masked_feats().to(torch.float32)
     dev = feats.device
-    ssum = torch.zeros(out.cap + 1, src.num_channels, dtype=torch.float32,
-                       device=dev)
-    cnt = torch.zeros(out.cap + 1, dtype=torch.float32, device=dev)
+    slots = []
     for d in _DELTAS:
         cand_lat = base + torch.as_tensor(d, device=dev)
         in_window = torch.all((src.coords - cand_lat * lattice).abs() <= half,
                               dim=-1)
         row = lookup(sorted_keys, row_of_rank, cand_lat, src.valid & in_window)
-        slot = torch.where(row >= 0, row, torch.full_like(row, out.cap))
-        ssum.index_add_(0, slot, feats)
-        cnt.index_add_(0, slot, (row >= 0).to(torch.float32))
-    mean = ssum[:out.cap] / cnt[:out.cap].clamp(min=1.0)[:, None]
+        slots.append(torch.where(row >= 0, row, torch.full_like(row, out.cap)))
+    slot = torch.cat(slots).long()             # offset-major (offset, source)
+    src_rows = torch.arange(src.cap, device=dev).repeat(len(_DELTAS))
+    ssum = segment_sum(feats, slot, out.cap + 1, rows=src_rows)
+    cnt = torch.zeros(out.cap + 1, dtype=torch.long, device=dev)
+    cnt.index_add_(0, slot, torch.ones_like(slot))          # integers: exact
+    mean = ssum[:out.cap] / cnt[:out.cap].clamp(min=1)[:, None]
     return SparseTensor(out.coords, zero_invalid(mean, out.valid), out.valid,
                         out.stride)
 

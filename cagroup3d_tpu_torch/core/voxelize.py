@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.segsum import segment_sums
-from .gather import take1, take_rows
+from .gather import segment_sum, take1, take_rows
 from .hashing import INVALID_KEY, pack_coords, unpack_keys
 from .sparse import PAD_COORD, SparseTensor, zero_invalid
 
@@ -122,9 +122,8 @@ def unique_voxels(lat: torch.Tensor, feats: torch.Tensor,
     if mode == "mean":
         F = feats.shape[-1]
         fs = zero_invalid(feats, valid)
-        seg = torch.where(kept, slot, torch.full_like(slot, cap)).long()
-        sums = torch.zeros(cap + 1, F, dtype=torch.float32, device=dev)
-        sums.index_add_(0, seg, fs[order].to(torch.float32))
+        seg = torch.where(kept, slot, torch.full_like(slot, cap))
+        sums = segment_sum(fs.to(torch.float32), seg, cap + 1, rows=order)
         out_feats = (sums[:cap] / cnt.clamp(min=1)[:, None]).to(feats.dtype)
     elif mode == "first":
         out_feats = take_rows(feats, first_row)
@@ -168,11 +167,11 @@ def unique_voxels_classes_paired(lat: torch.Tensor, feats: torch.Tensor,
     per-group segment mean over the key-sorted rows in bf16 rows with f32
     sums: in eval the first ``cap_fine`` keys through kernel K2
     (ops/segsum.py); in training (``train``) the cyclic ``drop_offset``
-    window through ``index_add_``, which autograd differentiates (K2 has
-    no backward, and the JAX package gates its kernel off in training the
-    same way).  The coarse map is the count-weighted mean of fine voxels
-    over fine // coarse_factor.  Returns ((coords, feats, valid) fine,
-    (coords, feats, valid) coarse, (overflow_fine i32[G],
+    window through ``gather.segment_sum``, which autograd differentiates
+    (K2 has no backward, and the JAX package gates its kernel off in
+    training the same way).  The coarse map is the count-weighted mean of
+    fine voxels over fine // coarse_factor.  Returns ((coords, feats,
+    valid) fine, (coords, feats, valid) coarse, (overflow_fine i32[G],
     overflow_coarse i32[G])).
     """
     G, P, _ = lat.shape
@@ -220,10 +219,9 @@ def _window_segment_sums(sk, ok, feats_s, n_unique, cap: int,
     base = (torch.arange(G, device=sk.device, dtype=torch.int32)
             * (cap + 1))[:, None]
     seg = (torch.where(kept, slot, torch.full_like(slot, cap)) + base
-           ).reshape(-1).long()
-    sums = torch.zeros(G * (cap + 1), F, dtype=torch.float32,
-                       device=sk.device)
-    sums = sums.index_add(0, seg, feats_s.reshape(-1, F).to(torch.float32))
+           ).reshape(-1)
+    sums = segment_sum(feats_s.reshape(-1, F).to(torch.float32), seg,
+                       G * (cap + 1))
     return sums.reshape(G, cap + 1, F)[:, :cap], cnt, start
 
 
@@ -262,9 +260,8 @@ def _paired_coarse(cap_coarse, coarse_factor, f_coords, f_valid, f_sum,
     c_cnt.index_add_(0, seg2, torch.where(keep2, cnt_s,
                                           torch.zeros_like(cnt_s)).reshape(-1))
     c_cnt = c_cnt.reshape(G, cap_coarse + 1)[:, :cap_coarse]
-    c_sum = torch.zeros(G * (cap_coarse + 1), F, dtype=torch.float32,
-                        device=dev)
-    c_sum.index_add_(0, seg2, sum_s.reshape(-1, F).to(torch.float32))
+    c_sum = segment_sum(sum_s.reshape(-1, F).to(torch.float32), seg2,
+                        G * (cap_coarse + 1))
     c_sum = c_sum.reshape(G, cap_coarse + 1, F)[:, :cap_coarse]
     c_valid = c_cnt > 0
     c_feats = zero_invalid(c_sum / c_cnt.clamp(min=1)[..., None], c_valid)

@@ -60,7 +60,11 @@ class DataLoader:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
         idx = idx[self.rank::self.world_size]   # rank sharding
-        nb = len(idx) // self.batch_size if self.drop_last \
+        # training: every rank len(self) batches (with len(dataset) % W
+        # != 0 the first ranks hold one scene more, and a rank with an
+        # extra batch would enter the step's collectives alone); eval
+        # keeps every scene
+        nb = len(self) if self.drop_last \
             else -(-len(idx) // self.batch_size)
         return [idx[i * self.batch_size:(i + 1) * self.batch_size]
                 for i in range(nb)]

@@ -27,10 +27,11 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def bn_rows(P: Params, S: Params, ctx: Ctx, path: str, x: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
-    """Masked BN of x [..., C] over all its rows (mask [...])."""
+    """Masked BN of x [B, ..., C] over all its rows (mask [B, ...]), the
+    scenes' sums added in scene order."""
     shape = x.shape
-    y = apply_bn(P, S, ctx, path, x.reshape(-1, shape[-1]),
-                 mask.reshape(-1))
+    y = apply_bn(P, S, ctx, path, x.reshape(shape[0], -1, shape[-1]),
+                 mask.reshape(shape[0], -1), scene_axis=True)
     return y.reshape(shape)
 
 

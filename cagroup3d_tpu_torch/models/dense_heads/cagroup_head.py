@@ -30,6 +30,7 @@ from ...core.sparse_conv import (generative_up_classes,
 from ...core.voxelize import unique_voxels_classes_paired
 from ..layers import act, bn, subm
 from ...utils import loss_utils as L
+from ...utils.commu_utils import global_mean
 from ..model_utils.cagroup_utils import bias_init_with_prob
 from .target_assigner.cagroup3d_assigner import (CAGroup3DAssigner,
                                                  find_points_in_boxes)
@@ -365,7 +366,7 @@ class CAGroup3DHead(nn.Module):
 
     def loss(self, outs: Dict[str, torch.Tensor], gt_boxes, gt_labels,
              gt_valid, scene_points, scene_valid, sem_mask=None,
-             ins_mask=None, ins_cap: int = 128):
+             ins_mask=None, ins_cap: int = 128, group=None):
         """Loss over B scenes; every input has a leading scene axis.
 
         outs: head outputs stacked over scenes; gt_boxes [B, G, 7] in the
@@ -373,7 +374,10 @@ class CAGroup3DHead(nn.Module):
         scene_points [B, P, 3] raw points (same frames), sem/ins masks
         i32[B, P].  Per-scene losses are averaged over the scenes, with
         normalizers that average per-scene counts over the scenes (the
-        reference's reduce_mean).  Returns (loss, tb_dict)."""
+        reference's reduce_mean); with a process ``group`` the normalizers
+        average over every rank's scenes, and the mean over this rank's
+        scenes becomes the global one when the step averages the ranks'
+        gradients.  Returns (loss, tb_dict)."""
         c = self.loss_cfg
         off_cfg = c.get("LOSS_OFFSET", None)
         beta = float(off_cfg.BETA) if off_cfg else 0.04
@@ -416,12 +420,12 @@ class CAGroup3DHead(nn.Module):
         sem_valid = outs["semantic_valid"]                        # [B, N2]
         pts_valid = outs["points_valid"].reshape(B, -1)           # [B, M]
         pos = (labels.reshape(B, -1) >= 0) & pts_valid
-        sem_n_pos = ((sem_labels >= 0) & sem_valid).sum(1).float().mean() \
-            .clamp(min=1.0)
-        n_pos = pos.sum(1).float().mean().clamp(min=1.0)
-        cdenorm = torch.where(pos, ctgt.reshape(B, -1),
-                              torch.zeros_like(pos, dtype=ctgt.dtype)
-                              ).sum(1).mean().clamp(min=1e-6)
+        sem_n_pos = global_mean(((sem_labels >= 0) & sem_valid).sum(1)
+                                .float(), group).clamp(min=1.0)
+        n_pos = global_mean(pos.sum(1).float(), group).clamp(min=1.0)
+        cdenorm = global_mean(torch.where(
+            pos, ctgt.reshape(B, -1), torch.zeros_like(pos, dtype=ctgt.dtype)
+        ).sum(1), group).clamp(min=1e-6)
         safe = torch.tensor([0, 0, 0, 1, 1, 1, 0.0], device=gt_boxes.device)
         parts = []
         for b in range(B):

@@ -28,6 +28,7 @@ from ...core import pointnet2 as pn2
 from ...core.module import Ctx, init_bn, init_linear, register_flat
 from ...core.nms import topk_stable
 from ...utils import loss_utils as L
+from ...utils.commu_utils import global_sum, group_size
 from ..backbones_3d.pointnet2_modules import (SAModule, bn_rows, masked_relu,
                                               relu)
 from ..model_utils.rbgnet_utils import (RBGBBoxCoder, aligned_3d_nms,
@@ -553,18 +554,32 @@ class RBGHead(nn.Module):
                 batch["gt_valid"][b], ins_cap) for b in range(B)]
         return {k: torch.stack([t[k] for t in per]) for k in per[0]}
 
-    def loss(self, outs: Dict, bbs: Dict, batch: Dict, ins_cap: int = 128):
+    def loss(self, outs: Dict, bbs: Dict, batch: Dict, ins_cap: int = 128,
+             group=None):
         """Batched loss.  outs: the head's outputs; bbs: the backbone's;
         batch: points [B, N, 3], points_valid, gt_boxes [B, G, 7],
-        gt_labels, gt_valid, semantic_mask / instance_mask or None."""
+        gt_labels, gt_valid, semantic_mask / instance_mask or None.
+
+        Most terms are weighted sums over the batch with weights that sum
+        to 1 over it; with a process ``group`` of W ranks the weights'
+        normalizer is the global one and each rank's weights are scaled by
+        W, so the mean of the ranks' losses (the step averages their
+        gradients) is the W*B-scene loss.  The vote and sampling terms are
+        means over equal-sized scenes, which that average already makes
+        global."""
         gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
         sem_mask = batch.get("semantic_mask")
         tg = self.targets(outs, batch, ins_cap)
         lw = self.lw
         eps = 1e-6
+        ranks = float(group_size(group))
+
+        def batch_weights(w):
+            return w * ranks / (global_sum(w.sum(), group) + eps)
+
         obj_t = tg["obj_t"]
-        obj_w = tg["obj_mask"] / (tg["obj_mask"].sum() + eps)
-        box_w = obj_t.float() / (obj_t.sum() + eps)
+        obj_w = batch_weights(tg["obj_mask"])
+        box_w = batch_weights(obj_t.float())
 
         # vote loss: targets on raw points, gathered at the seed indices
         idx = bbs["fp_indices"]
@@ -580,7 +595,7 @@ class RBGHead(nn.Module):
         s2t, t2s = chamfer_distance(
             outs["center"], torch.ones_like(obj_t, dtype=torch.bool),
             gt_boxes[..., :3], gt_valid)
-        gt_w = gt_valid.float() / (gt_valid.float().sum() + eps)
+        gt_w = batch_weights(gt_valid.float())
         center_loss = 10.0 * (s2t * box_w).sum() + 10.0 * (t2s * gt_w).sum()
 
         dir_cls_loss = (L.cross_entropy_with_logits(
@@ -602,8 +617,7 @@ class RBGHead(nn.Module):
             outs["sem_scores"], tg["sem_t"]) * box_w).sum()
 
         def intersec(scores, t, v):
-            w = (obj_t[..., None] * v).float()
-            w = w / (w.sum() + eps)
+            w = batch_weights((obj_t[..., None] * v).float())
             return (L.cross_entropy_with_logits(
                 scores, t, class_weight=[0.5, 0.5]) * w).sum()
         fine_il = intersec(outs["fine_intersec_score"], tg["fine_t"],

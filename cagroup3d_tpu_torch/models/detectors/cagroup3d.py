@@ -13,7 +13,10 @@ every train-mode BN through a ``SceneSync`` so that BN pools all scenes, as
 the JAX package's ``psum`` over its scene axis does; one scene runs in the
 calling thread.  The losses are computed in the calling thread on the
 stacked per-scene outputs, so one ``backward()`` carries the gradients
-across scenes.
+across scenes.  Given a process group of W ranks (``--dist``), rank r's b
+scenes are the global scenes r*b .. r*b + b - 1 of a W*b-scene step: they
+draw the same random streams, BN pools all W*b scenes and the losses'
+normalizers are global (``parallel/mesh.make_train_step``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ...core.module import Ctx, flat_state, load_jax_params
 from ...core.norm import SceneSync
 from ...core.voxelize import unique_voxels
 from ...ops import build
+from ...utils.commu_utils import group_rank, group_size
 from ..backbones_3d.biresnet import BiResNet
 from ..dense_heads.cagroup_head import CAGroup3DHead
 from ..roi_heads.cagroup_roi_head import CAGroup3DRoIHead
@@ -122,20 +126,25 @@ class CAGroup3D(nn.Module):
         return head_out, roi_out, origin, pts_norm
 
     def forward_train(self, batch: Dict, generator: torch.Generator,
-                      cur_epoch: float = 0.0, roi_draws: Optional[List] = None):
+                      cur_epoch: float = 0.0, roi_draws: Optional[List] = None,
+                      group=None):
         """One training forward over the B scenes of ``batch`` (points
         [B, P, 6], points_valid, gt_boxes [B, G, 8] with the label last,
         gt_valid, and the semantic/instance masks of the ScanNet vote
         loss).  ``generator`` seeds one random stream per scene (drop
         offsets, RoI sampling, dropout); ``roi_draws`` overrides each
-        scene's RoI sampling draws.  Returns (loss, tb_dict,
-        running-stat updates); the updates are scene 0's, which equal every
-        scene's because BN pools the scenes."""
+        scene's RoI sampling draws.  With a process ``group`` of W ranks
+        the batch is this rank's block of a W*B-scene step (the module
+        docstring).  Returns (loss, tb_dict, running-stat updates); the
+        updates are scene 0's, which equal every scene's because BN pools
+        the scenes."""
         P, S = flat_state(self)
         sem_thr = self.semantic_threshold(cur_epoch)
         B = batch["points"].shape[0]
-        seeds = torch.randint(0, 1 << 62, (B,), generator=generator).tolist()
-        sync = SceneSync(B) if B > 1 else None
+        W, r = group_size(group), group_rank(group)
+        seeds = torch.randint(0, 1 << 62, (W * B,), generator=generator)[
+            r * B:(r + 1) * B].tolist()
+        sync = SceneSync(B, group) if B > 1 or W > 1 else None
         if batch["points"].is_cuda:
             build.load("sparse_conv")     # build before the scene threads
         ctxs = [Ctx(train=True, generator=torch.Generator().manual_seed(sd),
@@ -162,11 +171,13 @@ class CAGroup3D(nn.Module):
         loss_one, tb = self.dense_head.loss(
             head_outs, gt_boxes_n, gt_labels, gt_valid, pts_norm,
             batch["points_valid"], batch.get("semantic_mask"),
-            batch.get("instance_mask"), ins_cap=self.ins_cap)
-        loss_two, tb2 = self.roi_head.loss(roi_outs)
+            batch.get("instance_mask"), ins_cap=self.ins_cap, group=group)
+        loss_two, tb2 = self.roi_head.loss(roi_outs, group=group)
         tb.update(tb2)
         loss = loss_one + loss_two
         tb["loss_all"] = loss
+        if sync is not None:
+            loss = sync.attach(loss)
         # capacity-overflow counters (dropped voxels), summed over scenes
         for k in ctxs[0].stats:
             tb[k] = sum(c.stats[k] for c in ctxs).float()
@@ -200,10 +211,16 @@ class CAGroup3D(nn.Module):
 
 def run_scenes(fn, n: int, sync: Optional[SceneSync]):
     """[fn(0), ..., fn(n - 1)]: scene 0 in the calling thread when n == 1,
-    else one thread per scene.  A failing scene aborts ``sync`` so the
-    others stop waiting, and the first error is re-raised here."""
+    else one thread per scene.  A failing scene aborts ``sync`` (the other
+    scenes stop waiting, and this rank issues no further cross-rank sum),
+    and the first error is re-raised here."""
     if n == 1:
-        return [fn(0)]
+        try:
+            return [fn(0)]
+        except BaseException:
+            if sync is not None:
+                sync.abort()
+            raise
     results: list = [None] * n
     errors: list = []
     grad = torch.is_grad_enabled()

@@ -5,8 +5,10 @@ pcdet/models/detectors/rbgnet.py): two modules, ``backbone_3d`` and
 ``point_head``; the loss is the head's.  The JAX package vmaps one scene's
 forward over the batch; here the whole batch runs at once with a leading
 scene axis, and training-mode batch norm pools every valid row of the B
-scenes, as its ``psum`` over the scene axis does.  The model has no
-random draws, so the training step's generator is not used.
+scenes, as its ``psum`` over the scene axis does; given a process group
+of W ranks (``--dist``), BN pools every rank's rows and the loss's
+normalizers are global (``parallel/mesh.make_train_step``).  The model has
+no random draws, so the training step's generator is not used.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 from torch import nn
 
 from ...core.module import Ctx, flat_state, load_jax_params
+from ...core.norm import SceneSync
+from ...utils.commu_utils import group_size
 from ..backbones_3d.pointnet2_fbs_backbone import PointNet2FBSBackbone
 from ..dense_heads.rbg_head import RBGHead
 
@@ -43,15 +47,17 @@ class RBGNet(nn.Module):
 
     def forward_train(self, batch: Dict, generator: Optional[torch.Generator]
                       = None, cur_epoch: float = 0.0,
-                      roi_draws: Optional[List] = None):
+                      roi_draws: Optional[List] = None, group=None):
         """One training forward over the B scenes of ``batch`` (points
         [B, N, 6], points_valid, gt_boxes [B, G, 8] with the label last,
         gt_valid, and the ScanNet semantic/instance masks when present).
         ``generator`` and ``roi_draws`` are accepted for the training
-        step's signature; RBGNet draws nothing.  Returns (loss, tb_dict,
-        running-stat updates)."""
+        step's signature; RBGNet draws nothing.  ``group``: this rank's
+        process group (BN and the loss's normalizers span its ranks).
+        Returns (loss, tb_dict, running-stat updates)."""
         P, S = flat_state(self)
-        ctx = Ctx(train=True)
+        sync = SceneSync(1, group) if group_size(group) > 1 else None
+        ctx = Ctx(train=True, sync=sync)
         bb, out = self._forward(P, S, ctx, batch["points"],
                                 batch["points_valid"])
         loss_batch = dict(
@@ -63,7 +69,9 @@ class RBGNet(nn.Module):
             semantic_mask=batch.get("semantic_mask"),
             instance_mask=batch.get("instance_mask"))
         loss, tb = self.point_head.loss(out, bb, loss_batch,
-                                        ins_cap=self.ins_cap)
+                                        ins_cap=self.ins_cap, group=group)
+        if sync is not None:
+            loss = sync.attach(loss)
         return loss, tb, ctx.updates
 
     @torch.no_grad()

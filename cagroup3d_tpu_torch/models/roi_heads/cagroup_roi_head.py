@@ -33,6 +33,7 @@ from ...core.sparse import SparseTensor, zero_invalid
 from ...core.sparse_conv import scan_conv_grouped
 from ...core.voxelize import unique_voxels
 from ...utils import loss_utils as L
+from ...utils.commu_utils import global_sum, group_size
 from ..model_utils.cagroup_utils import CAGroupResidualCoder
 from .target_assigner.cagroup_proposal_target_layer import ProposalTargetLayer
 
@@ -207,10 +208,14 @@ class CAGroup3DRoIHead(nn.Module):
         heading = heading.clamp(-np.pi / 2, np.pi / 2)
         return torch.cat([gt_ct[:, :6], heading[:, None]], dim=-1)
 
-    def loss(self, fwd):
+    def loss(self, fwd, group=None):
         """Second-stage loss over B scenes (leading scene axis): weighted
         smooth-L1 of the residual codes of the foreground rois, and with
-        ``USE_IOU_LOSS`` 1 - IoU of their decoded boxes with the GT."""
+        ``USE_IOU_LOSS`` 1 - IoU of their decoded boxes with the GT.  Both
+        are sums over the batch's foreground rois over their count; with a
+        process ``group`` of W ranks the count is the global one and each
+        rank's sum is scaled by W, so the mean of the ranks' losses (the
+        step averages their gradients) is the W*B-scene loss."""
         code = self.code_size
         rois = fwd["rois"].reshape(-1, fwd["rois"].shape[-1])
         gt_ct = fwd["gt_of_rois"].reshape(-1, fwd["gt_of_rois"].shape[-1])
@@ -224,8 +229,9 @@ class CAGroup3DRoIHead(nn.Module):
         targets = self.box_coder.encode(gt_ct[:, :code], anchors)
         elt = L.weighted_smooth_l1(reg, targets,
                                    code_weights=self.code_weights)
-        fg_sum = fg.float().sum().clamp(min=1.0)
-        loss_reg = (elt * fg[:, None]).sum() / fg_sum
+        fg_sum = global_sum(fg.float().sum(), group).clamp(min=1.0)
+        ranks = float(group_size(group))
+        loss_reg = (elt * fg[:, None]).sum() / fg_sum * ranks
         w = float(self.loss_weight.RCNN_REG_WEIGHT)
         loss_reg = loss_reg * w
         tb = dict(rcnn_loss_reg=loss_reg)
@@ -239,7 +245,7 @@ class CAGroup3DRoIHead(nn.Module):
             decs = torch.where(fg[:, None], dec, safe)
             gts = torch.where(fg[:, None], gt_src, safe)
             liou = L.iou3d_loss(decs, gts, weight=fg.float(),
-                                avg_factor=fg_sum, with_yaw=code > 6)
+                                avg_factor=fg_sum, with_yaw=code > 6) * ranks
             liou = liou * float(self.loss_weight.RCNN_IOU_WEIGHT)
             tb["rcnn_loss_iou"] = liou
             total = total + liou

@@ -1,5 +1,7 @@
 """Evaluation CLI: one checkpoint, or every checkpoint of a directory as it
-appears (``--eval_all``), over a dataset's val split on one card.
+appears (``--eval_all``), over a dataset's val split on one card or, with
+``--dist`` under torchrun, one process per card (each rank runs its shard
+of the scenes; rank 0 merges them in the dataset's order and evaluates).
 
 Counterpart of the JAX package's ``tools/test.py`` (the reference's
 tools/test.py), with the same flags and ``--device`` (default ``cuda``; a
@@ -13,7 +15,12 @@ missing card is an error).  Run from the repository root:
 It reads checkpoints written by either package (pickled flat numpy dicts
 under the same names), prints the per-class AP/AR table and mAP@0.25/0.50,
 and writes ``result.pkl`` under ``output/<cfg group>/<cfg name>/
-<extra_tag>/eval/``.
+<extra_tag>/eval/``.  On N cards:
+
+    torchrun --standalone --nproc_per_node N -m \\
+        cagroup3d_tpu_torch.tools.test --dist --cfg_file ... --ckpt ...
+
+``--dist`` outside torchrun is an error.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from ..datasets import build_dataloader
 from ..models import build_network
 from ..training.checkpoint import load_checkpoint
 from ..training.eval_utils import eval_one_epoch
+from ..utils.commu_utils import all_gather, init_dist
 from ..utils.common_utils import create_logger
 
 
@@ -41,7 +49,7 @@ def parse_config(argv=None):
     parser = argparse.ArgumentParser(description="arg parser")
     parser.add_argument("--cfg_file", type=str, required=True)
     parser.add_argument("--dist", action="store_true", default=False,
-                        help="multi-process evaluation (not ported)")
+                        help="one process per card, under torchrun")
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--extra_tag", type=str, default="default")
     parser.add_argument("--ckpt", type=str, default=None)
@@ -68,23 +76,27 @@ def _epoch(path) -> int:
 
 
 def eval_ckpt(cfg, ckpt_path, model, dataset, loader, logger, result_dir,
-              epoch_id):
+              epoch_id, dist=False):
     ck = load_checkpoint(ckpt_path)
     model.load_jax_params(ck["params"], ck["state"])
     logger.info(f"loaded {ckpt_path} (epoch {ck.get('epoch')})")
     return eval_one_epoch(model, dataset, loader, epoch_id, logger,
-                          result_dir=result_dir, class_names=cfg.CLASS_NAMES)
+                          result_dir=result_dir, class_names=cfg.CLASS_NAMES,
+                          dist=dist)
 
 
 def main(args, cfg):
     """Evaluate ``args.ckpt``, or with ``args.eval_all`` every
     ``checkpoint_epoch_*.pkl`` of the checkpoint directory past
     ``start_epoch`` in epoch order, waiting up to ``max_waiting_mins``
-    for new ones.  Returns {checkpoint path: evaluation dict}."""
-    if args.dist:
-        raise NotImplementedError("--dist is not ported: the port "
-                                  "evaluates on one card")
+    for new ones.  Returns {checkpoint path: evaluation dict} (with
+    ``--dist``, {} on every rank but 0)."""
     device = torch.device(args.device)
+    rank, world = 0, 1
+    if args.dist:
+        rank, world, local = init_dist(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", local)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port evaluates on the card "
                            "(--device cpu is for tests)")
@@ -96,11 +108,13 @@ def main(args, cfg):
     eval_dir = output_dir / "eval"
     eval_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(
-        eval_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
+        eval_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+        if rank == 0 else None, rank=rank)
 
     dataset, loader, _ = build_dataloader(
         dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-        batch_size=args.batch_size or 1, logger=logger, training=False)
+        batch_size=args.batch_size or 1, logger=logger, training=False,
+        rank=rank, world_size=world)
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=device)
     model.eval()
 
@@ -108,26 +122,35 @@ def main(args, cfg):
     if not args.eval_all:
         results[args.ckpt] = eval_ckpt(
             cfg, args.ckpt, model, dataset, loader, logger, eval_dir,
-            epoch_id=cfg.OPTIMIZATION.NUM_EPOCHS)
-        return results
+            epoch_id=cfg.OPTIMIZATION.NUM_EPOCHS, dist=args.dist)
+        return results if rank == 0 else {}
     ckpt_dir = Path(args.ckpt_dir or (output_dir / "ckpt"))
     wait_start = time.time()
     while True:
         todo = sorted((c for c in glob.glob(str(
             ckpt_dir / "checkpoint_epoch_*.pkl")) if c not in results and
             _epoch(c) > args.start_epoch), key=_epoch)
+        stop = not todo and \
+            time.time() - wait_start >= args.max_waiting_mins * 60
+        if args.dist:        # rank 0's view, so the ranks evaluate alike
+            todo, stop = all_gather((todo, stop))[0]
+        if stop:
+            break
         if not todo:
-            if time.time() - wait_start >= args.max_waiting_mins * 60:
-                break
             time.sleep(30)
             continue
         for c in todo:
             epoch_id = _epoch(c)
             results[c] = eval_ckpt(cfg, c, model, dataset, loader, logger,
-                                   eval_dir / f"epoch_{epoch_id}", epoch_id)
+                                   eval_dir / f"epoch_{epoch_id}", epoch_id,
+                                   dist=args.dist)
         wait_start = time.time()
-    return results
+    return results if rank == 0 else {}
 
 
 if __name__ == "__main__":
-    main(*parse_config())
+    try:
+        main(*parse_config())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -7,6 +7,9 @@ tools/eval_utils/eval_utils.py).  The loader yields padded numpy batches;
 each batch's points go to the model's device, ``forward_eval`` runs under
 ``torch.inference_mode()``, and its padded outputs come back to the host
 (which waits for the card) before they are unpadded by ``pred_valid``.
+With ``dist`` (one process per card, the loader sharded by rank) the
+ranks' prediction dicts are merged in the JAX package's interleaved rank
+order, their recall counters summed, and rank 0 alone evaluates.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..datasets.indoor_eval import d3_box_overlap
+from ..utils import commu_utils
 
 RECALL_THRESHOLDS = (0.25, 0.5)
 
@@ -50,11 +54,14 @@ def eval_one_epoch(model, dataset, loader, epoch_id, logger,
     """Evaluate ``model`` (a detector with ``forward_eval``) over every
     batch of ``loader``; write ``result_dir / "result.pkl"`` (the
     prediction dicts, one per scene) when ``result_dir`` is given and
-    return the dataset's evaluation dict.  Multi-process evaluation
-    (``dist``) is not ported."""
-    if dist:
-        raise NotImplementedError("distributed evaluation is not ported; "
-                                  "run one process")
+    return the dataset's evaluation dict.  With ``dist`` each rank runs
+    its shard of the loader, the ranks' dicts are merged in the order of
+    the whole dataset (``commu_utils.merge_results_dist``), and rank 0
+    writes result.pkl and evaluates; the other ranks return {}."""
+    if dist and not torch.distributed.is_initialized():
+        raise RuntimeError("eval_one_epoch(dist=True) needs the process "
+                           "group (commu_utils.init_dist); it does not "
+                           "fall back to one process")
     class_names = class_names or dataset.class_names
     device = next(model.parameters()).device
     det_annos: List[Dict] = []
@@ -91,6 +98,13 @@ def eval_one_epoch(model, dataset, loader, epoch_id, logger,
                 recall_dict = statistics_info(recall_dict, boxes[b][v], gt)
         det_annos += dataset.generate_prediction_dicts(
             batch_np, pred_dicts, class_names)
+    if dist:
+        det_annos = commu_utils.merge_results_dist(
+            det_annos, total_size=len(dataset))
+        recall_dict = {k: int(v) for k, v in commu_utils.reduce_dict(
+            recall_dict, average=False).items()}
+        if commu_utils.get_rank() != 0:
+            return {}
     logger.info(f"eval: {n_scenes} scenes, "
                 f"{total_time / max(n_scenes, 1) * 1e3:.1f} ms/scene "
                 f"(incl. host transfer)")

@@ -4,7 +4,12 @@ checkpoint save/prune and auto-resume.
 
 Counterpart of ``cagroup3d_tpu/training/train_loop.py``.  One optimizer
 step per batch (``parallel/mesh.make_train_step``); the model runs on the
-GPU unless the caller passes another device.
+GPU unless the caller passes another device.  With a process ``group``
+(``--dist``) every rank must take the same number of steps an epoch (a
+rank with one batch more would enter a collective alone: the rank-sharded
+loader gives each rank ``len(loader)`` training batches), and only rank 0
+writes the checkpoints and ``metrics.jsonl``; the others wait for each
+save at a barrier.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import make_train_step
+from ..utils.commu_utils import barrier, group_rank
 from ..utils.metrics import LogBuffer, MetricsWriter
 from .checkpoint import (latest_checkpoint, load_checkpoint,
                          prune_checkpoints, restore, save_checkpoint)
@@ -44,15 +50,17 @@ def train_model(model, optimizer, train_loader, total_epochs: int,
                 ckpt_dir: str, logger, start_epoch: int = 0,
                 start_it: int = 0, max_ckpt_save_num: int = 5,
                 log_interval: int = 50, generator=None,
-                metrics_path: Optional[str] = None, device=None):
+                metrics_path: Optional[str] = None, device=None, group=None):
     """Train ``model`` with ``optimizer`` (``training.optimization.
     Optimizer``) over ``train_loader`` (iterable of numpy batch dicts with
-    ``set_epoch``); one checkpoint per epoch.  Returns the iteration
-    count."""
+    ``set_epoch``; this rank's shard with a process ``group``); one
+    checkpoint per epoch.  Returns the iteration count."""
     device = torch.device("cuda") if device is None else device
-    step = make_train_step(model, optimizer, generator, device=device)
+    step = make_train_step(model, optimizer, generator, device=device,
+                           group=group)
+    rank0 = group_rank(group) == 0
     it = start_it
-    metrics = MetricsWriter(metrics_path)
+    metrics = MetricsWriter(metrics_path if rank0 else None)
     log_buffer = LogBuffer()
     for epoch in range(start_epoch, total_epochs):
         train_loader.set_epoch(epoch)
@@ -78,11 +86,13 @@ def train_model(model, optimizer, train_loader, total_epochs: int,
                     f"epoch {epoch} it {it} loss {loss_v:.4f} lr {lr:.2e} "
                     f"d_time {data_meter.avg:.3f} b_time {batch_meter.avg:.3f} "
                     f"{log_buffer.output}")
-        os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, f"checkpoint_epoch_{epoch + 1}.pkl")
-        save_checkpoint(path, model, optimizer, epoch + 1, it)
-        prune_checkpoints(ckpt_dir, keep=max_ckpt_save_num)
-        logger.info(f"saved {path}")
+        if rank0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            save_checkpoint(path, model, optimizer, epoch + 1, it)
+            prune_checkpoints(ckpt_dir, keep=max_ckpt_save_num)
+            logger.info(f"saved {path}")
+        barrier(group)
     metrics.close()
     return it
 

@@ -1,15 +1,21 @@
-"""Observability: a rolling ``LogBuffer`` and a JSONL ``MetricsWriter``.
+"""Observability: a rolling ``LogBuffer``, a JSONL ``MetricsWriter`` and a
+profiler context.
 
 Counterpart of ``cagroup3d_tpu/utils/metrics.py`` (the reference's
 tensorboardX + LogBuffer): scalars go to a line-delimited JSON file and a
-rolling average buffer drives console logging.
+rolling average buffer drives console logging; ``profile_ctx`` writes a
+``torch.profiler`` trace where the JAX package writes a jax.profiler one.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
+
+import torch
 
 
 class LogBuffer:
@@ -60,3 +66,22 @@ class MetricsWriter:
     def close(self):
         if self._f:
             self._f.close()
+
+
+@contextlib.contextmanager
+def profile_ctx(trace_dir: Optional[str], device=None):
+    """``torch.profiler`` over the wrapped region (the host, and the card's
+    kernels when ``device`` is a CUDA device), written to
+    ``trace_dir/trace.json`` (Chrome trace format); nothing when
+    ``trace_dir`` is None."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -68,11 +68,11 @@ after it.
    K1 and K2 launched.  It prints the harness's ms/scene, the loader's
    share and whether two direct calls give the same bits
    (``phase_test_cli``).
-7c. train-cli -- the training entry point: an 8-scene 100k-point synthetic
-   tree with REPEAT.train 1, the ``train`` CLI (``cagroup3d_tpu_torch.
-   tools.train``) run in-process at the YAML's full width and batch, with
-   the model as users build it: ``--epochs 1`` (ScanNet 2 steps of 4
-   scenes, SUN RGB-D 1 step of 8), then ``--epochs 2``, which resumes
+7c. train-cli -- the training entry point: a one-batch 100k-point
+   synthetic tree (ScanNet 4 scenes, SUN RGB-D 8) with REPEAT.train 1, the
+   ``train`` CLI (``cagroup3d_tpu_torch.tools.train``) run in-process at
+   the YAML's full width and batch, with the model as users build it:
+   ``--epochs 1`` (one step), then ``--epochs 2``, which resumes
    from ``checkpoint_epoch_1.pkl``; then the ``test`` CLI on
    ``checkpoint_epoch_2.pkl`` over the same tree (mAP printed only).
    Held: every step's and every logged loss finite, the resume logged,
@@ -96,7 +96,8 @@ after it.
    ``rcnn_loss_iou`` among them), every backbone, head and RoI
    parameter's gradient finite and each module's non-zero, parameters and
    BN running stats changed, K1 and K3 launched; peak memory.
-10. train-reference -- one training step of the tiny configuration at
+10. train-reference -- one training step of the tiny configuration (at
+   ``cpu_caps``: half its caps, k3 class convs) at
    B = 2 on the card against the same step on the CPU, same draws, zero
    votes (a vote's floor is the one discrete step that f32 round-off
    moves): loss within 1e-3; per module, the worst parameter's gradient
@@ -143,11 +144,26 @@ rbgnet-learn -- the tiny configuration on two fixed B = 2 batches, 60
    ``JAX_LEARN_DROP_RBG_YAW`` from ``tests/learn_margin.py --rbgnet
    [--yaw]``).
 
+Then the multi-card path (``--dist``, one process per card), on this one
+card (``phase_dist``):
+dist -- two ranks spawned over gloo (NCCL takes one rank a card), each
+   with one scene of a two-scene step, against one process of the two
+   scenes on the same parameters, batch and generator: the ScanNet YAML's
+   full-width CAGroup3D, the tiny SUN RGB-D CAGroup3D and the tiny SUN
+   RGB-D RBGNet (``DIST_CASES``).  Held: the first step's loss and every
+   tb term within 1e-5 relative, the ranks' parameters and BN buffers the
+   same bits after two steps, every module's gradients within phase 10's
+   bars, K1 and K3 launched in each CAGroup3D rank (none in RBGNet's).
+   Then the ``train`` CLI with ``--dist`` under ``torchrun --standalone
+   --nproc_per_node 1`` (NCCL) for an epoch on a small tree, and the
+   ``test`` CLI on its checkpoint under torchrun with ``--dist`` and as
+   one plain process: result.pkl the same bits, the same mAP lines.
+
 The line before the last is {"kernels": [...]}: per kernel the launches of
 both CAGroup3D paths' main-path runs summed (and of both paths' CLI runs,
-``train_cli_launches``; of every RBGNet run, ``rbgnet_launches``), the
-ScanNet path's times and each path's own under ``paths``.  The last is
-{"ok": true, "device": {...}}.
+``train_cli_launches``; of every RBGNet run, ``rbgnet_launches``; of the
+dist phase's ranks, ``dist_launches``), the ScanNet path's times and each
+path's own under ``paths``.  The last is {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -397,17 +413,23 @@ def library_dw_ms(src_lat, src_valid, feats, gout, K, Gw, qry_lat=None,
     return bmm_ms(op.transpose(1, 2), gout.to(torch.bfloat16))
 
 
+def grads_of(model, prefix=""):
+    """{name: gradient (f64, on the CPU)} of the model's parameters under
+    ``prefix``."""
+    return {k: p.grad.detach().double().cpu() for k, p in
+            model.named_parameters() if k.startswith(prefix)}
+
+
 def grad_report(model_a, model_b, prefix):
-    """Per-parameter gradient errors of model_a against model_b under
-    ``prefix``: (worst name, worst relative error in norm, number
-    compared, whole-vector relative error, cosine).  A gradient below
-    1e-4 of the group's largest norm (a BN bias whose gradient the next BN
-    cancels) is round-off on both sides and is held only to that floor."""
+    """Per-parameter gradient errors of model_a against model_b (models,
+    or their ``grads_of``) under ``prefix``: (worst name, worst relative
+    error in norm, number compared, whole-vector relative error, cosine).
+    A gradient below 1e-4 of the group's largest norm (a BN bias whose
+    gradient the next BN cancels) is round-off on both sides and is held
+    only to that floor."""
     import torch
-    ga = {k: p.grad.detach().double().cpu() for k, p in
-          model_a.named_parameters() if k.startswith(prefix)}
-    gb = {k: p.grad.detach().double().cpu() for k, p in
-          model_b.named_parameters() if k.startswith(prefix)}
+    ga, gb = ({k: v for k, v in (m if isinstance(m, dict) else grads_of(m))
+               .items() if k.startswith(prefix)} for m in (model_a, model_b))
     norms = {k: float(v.norm()) for k, v in gb.items()}
     floor = 1e-4 * max(norms.values())
     errs, floor_ok = {}, True
@@ -860,11 +882,15 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
 
 
 def phase_train_reference(dev, path):
-    """Phase 10: the tiny training step on the card against the CPU."""
+    """Phase 10: the tiny training step on the card against the CPU, at
+    ``cpu_caps`` (the plain k9 class conv's backward was most of the
+    CPU's steps).  Returns phase 11's configuration, class count and
+    batch."""
     import torch
     ttc, names, _ = tiny_train_config(path.cfg_path)
     n_names = len(names)
-    cpu_m = build_model(ttc, n_names, "cpu", seed=1, train=True)
+    cpu_m = build_model(cpu_caps(copy.deepcopy(ttc)), n_names, "cpu", seed=1,
+                        train=True)
     with torch.no_grad():
         # zero votes: a voted point floors into its per-class voxel, and
         # one f32 ulp of a random vote (the card sums BN statistics in
@@ -1283,9 +1309,10 @@ def phase_test_cli(dev, gpu, power, path):
     aligned frame; the GT as predictions scores mAP and mAR 1.0 at both
     thresholds, and 0.0 with every box moved along x past its BEV diagonal
     (plus 10 m); the model's mAP and mAR finite in [0, 1] for every class
-    of the tree; K1 and K2 launched.  Printed only: whether two direct
-    calls on one batch give the same bits (``profile_port.py``'s ``bits``
-    phase finds the first op apart)."""
+    of the tree; K1 and K2 launched; two direct ``forward_eval`` calls on
+    one batch give the same bits (CAGroup3D: every float sum of its eval
+    forward has a fixed order; ``profile_port.py``'s ``bits`` phase finds
+    the first op apart; printed only for RBGNet)."""
     import pickle
     import tempfile
     import numpy as np
@@ -1417,6 +1444,10 @@ def phase_test_cli(dev, gpu, power, path):
         two = [calls[0][0].forward_eval(calls[0][1], cur_epoch=10)
                for _ in range(2)]
     two_same = all(torch.equal(two[0][k], two[1][k]) for k in two[0])
+    if path.kernels and not two_same:
+        bad.append("two direct forward_eval calls on one batch give "
+                   "different bits (profile_port.py's bits phase names the "
+                   "first op apart)")
     ms = harness_s[0] * 1e3 / CLI_SCENES
     phase = "test-cli" if path.kernels else "rbgnet-test-cli"
     emit({"phase": phase, "config": path.name, "ok": not bad,
@@ -1494,11 +1525,11 @@ class TrainCliRecording:
 
 def phase_train_cli(dev, gpu, power, path):
     """Phase 7c: the ``train`` CLI (``cagroup3d_tpu_torch.tools.train``) in
-    this process on a synthetic tree of CLI_SCENES 100k-point scenes
+    this process on a synthetic tree of one batch of 100k-point scenes
     (``write_indoor_tree``) with REPEAT.train 1, at the YAML's full width
     and batch and with its model as users build it (seeded, nothing
-    opened or lifted): ``--epochs 1`` (ScanNet B = 4: 2 steps; SUN RGB-D
-    B = 8: 1 step), then ``--epochs 2``, which must auto-resume from
+    opened or lifted): ``--epochs 1`` (one step: ScanNet 4 scenes, SUN
+    RGB-D 8), then ``--epochs 2``, which must auto-resume from
     ``checkpoint_epoch_1.pkl``; then the ``test`` CLI evaluates
     ``checkpoint_epoch_2.pkl`` over the same tree (its mAP printed, not
     held: the model is untrained).  Held: every step's loss and tb and
@@ -1518,12 +1549,12 @@ def phase_train_cli(dev, gpu, power, path):
     from cagroup3d_tpu_torch.tools import train as cli
     from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
     names = list(path.cfg.CLASS_NAMES)
-    B = int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    steps_per_epoch = CLI_SCENES // B
+    B = n_scenes = int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    steps_per_epoch = 1
     cwd, t_phase, bad = os.getcwd(), time.time(), []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
         tree = os.path.join(tmp, path.name)
-        write_indoor_tree(tree, path.name, names, CLI_SCENES,
+        write_indoor_tree(tree, path.name, names, n_scenes,
                           n_points=N_POINTS, seed=1)
         data = ["--set", "DATA_CONFIG.DATA_PATH", tree]
         torch.cuda.empty_cache()
@@ -1595,7 +1626,7 @@ def phase_train_cli(dev, gpu, power, path):
     waits = [w * 1e3 for ld in rec.loaders for w in ld.waits]
     ms = [w + s["ms"] for w, s in zip(waits, rec.steps)]
     emit({"phase": "train-cli", "config": path.name, "ok": not bad,
-          "gpu": gpu, "power_limit": power, "scenes": CLI_SCENES,
+          "gpu": gpu, "power_limit": power, "scenes": n_scenes,
           "points_per_scene": N_POINTS, "batch_size": B,
           "steps_per_epoch": steps_per_epoch, "ms_per_step": ms,
           "median_ms": float(np.median(ms)) if ms else None,
@@ -2051,14 +2082,468 @@ def run_rbg_path(dev, gpu, power, path):
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
-def kernel_line(res, rbg):
+# ---------------------------------------------------------------------------
+# dist: W ranks of b scenes against one process of W * b scenes
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 300        # each rank's process-group timeout
+DIST_STEPS = 2
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(fn, rank, world, port, timeout_s, args):
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, args, world=2, timeout_s=DIST_TIMEOUT_S, during=None):
+    """fn(rank, world, *args) in ``world`` processes (``spawn``), joined in
+    a gloo process group over the loopback interface whose collectives
+    raise after ``timeout_s``; ``during()`` runs here meanwhile and its
+    result is returned.  Raises if a rank exits non-zero (the others are
+    killed then) or runs ``timeout_s`` + 60 s."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(fn, r, world, port, timeout_s, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout_s + 60
+    out = None
+    try:
+        if during is not None:
+            out = during()
+        while any(p.is_alive() for p in procs) and time.time() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"{fn.__name__}: the ranks' exit codes {codes} "
+                           f"(negative: killed; the limit {timeout_s} s)")
+    return out
+
+
+def step_case(spec):
+    """(model, optimizer, batch) of a dist comparison, the same on every
+    call: ``spec`` kind ("cagroup3d" or "rbgnet"), cfg (the YAML), tiny
+    (the tiny widths of phases 10-11 and rbgnet-learn, or the YAML's with
+    phase 9's caps), device, B (the global batch) and seed (the batch's).
+    The votes are zeroed (CAGroup3D's as in phase 10, RBGNet's offsets):
+    a vote's floor, FPS over the votes and the radius groups around them
+    are discrete steps that round-off moves, and the ranks add some sums
+    in another order than the one process."""
+    import torch
+    from cagroup3d_tpu_torch.models import load_config
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    cfg = load_config(spec["cfg"])
+    n_cls = len(cfg.CLASS_NAMES)
+    dev = torch.device(spec["device"])
+    tiny = spec["tiny"]
+    if spec["kind"] == "rbgnet":
+        mc = copy.deepcopy(cfg.MODEL)
+        model = rbg_model(tiny_rbg_model(mc) if tiny else mc, n_cls, dev,
+                          seed=1)
+        yaw = bool(mc.POINT_HEAD.BOX_CODER.WITH_ROT)
+        w = model.get_parameter("point_head.vote_module.conv_out.weight")
+        per = w.shape[1] // model.point_head.voter.vote_per_seed
+        with torch.no_grad():
+            for p in (w, model.get_parameter(
+                    "point_head.vote_module.conv_out.bias")):
+                p.view(*p.shape[:-1], -1, per)[..., :3] = 0.0
+    else:
+        if tiny:
+            mc = tiny_train_config(spec["cfg"])[0]
+            if spec.get("cpu_caps"):
+                cpu_caps(mc)
+        else:
+            mc = copy.deepcopy(cfg.MODEL)
+            mc.INPUT_CAP, mc.DENSE_HEAD.FINE_CAP = INPUT_CAP, FINE_CAP
+            mc.ROI_GT_AUG = 0.05                # see tiny_train_config
+        model = build_model(mc, n_cls, dev, seed=1, train=True)
+        with torch.no_grad():
+            model.get_parameter("dense_head.offset_block.6.kernel").zero_()
+        yaw = bool(mc.DENSE_HEAD.WITH_YAW)
+    opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH)
+    scene = TINY_TRAIN_SCENE if tiny else dict(n_points=N_POINTS)
+    if spec.get("cpu_caps"):
+        scene = dict(scene, n_points=1000)
+    batch = synthetic_train_batch(spec["seed"], dev, spec["B"],
+                                  n_classes=n_cls, yaw=yaw, **scene)
+    return model, opt, batch
+
+
+def cpu_caps(mc):
+    """A tiny CAGroup3D configuration cut further for CPU tests, in place:
+    half the caps and k3 class convs (the plain k9 conv's backward
+    dominates a CPU step)."""
+    mc.BACKBONE_3D.CAPS = {1: 1024, 2: 1024, 4: 512, 8: 256, 16: 128,
+                           32: 64, 64: 16, 128: 8, 256: 8, 512: 8}
+    mc.INPUT_CAP = 1024
+    mc.DENSE_HEAD.update(CLS_KERNEL=3, FINE_CAP=256, EXPAND_CAP=256)
+    mc.ROI_HEAD.GRID_CAP = 512
+    return mc
+
+
+def record_steps(step, model, batch, steps=DIST_STEPS):
+    """``steps`` training steps on ``batch``: each step's loss and tb, the
+    gradients of the first update (``grads_of``, after the clip) and the
+    parameters and buffers after the last step (on the CPU)."""
+    out = dict(loss=[], tb=[])
+    for i in range(steps):
+        loss, tb = step(batch, 0.0)
+        out["loss"].append(float(loss))
+        out["tb"].append({k: float(v) for k, v in tb.items()})
+        if i == 0:
+            out["grads"] = grads_of(model)
+    out["state"] = {k: v.detach().cpu().clone()
+                    for k, v in model.state_dict().items()}
+    return out
+
+
+def dist_step_rank(rank, world, specs, out_dir):
+    """One rank of ``dist_step_compare``, for each of ``specs`` in turn: the
+    global scenes rank*b .. rank*b + b - 1 through ``make_train_step`` over
+    the process group; writes ``record_steps`` and its kernels' launches
+    to ``out_dir/rank<r>_<case>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+    for i, spec in enumerate(specs):
+        if torch.device(spec["device"]).type == "cpu":
+            torch.set_num_threads(1)
+        model, opt, batch = step_case(spec)
+        b = spec["B"] // world
+        local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+        launch_counts(reset=True)
+        step = make_train_step(model, opt, torch.Generator().manual_seed(7),
+                               device=spec["device"], group=dist.group.WORLD)
+        rec = record_steps(step, model, local)
+        rec["launches"] = launch_counts()
+        torch.save(rec, os.path.join(out_dir, f"rank{rank}_{i}.pt"))
+        del model, opt, batch, local, step
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def dist_step_compare(specs, out_dir, world=2, noise=False):
+    """For each of ``specs``: ``world`` ranks of B / world scenes each
+    (``dist_step_rank``; one spawn of the ranks runs every spec) against
+    one process at B on the same parameters, batch and generator (run
+    here meanwhile).  Returns a report a spec: the first step's loss and
+    tb terms, relative errors against the one process; whether the ranks'
+    parameters and buffers are the same bits after DIST_STEPS steps; per
+    module the first update's gradients against the one process
+    (``grad_report``, of rank 0; with ``noise`` beside what the
+    one-process step itself moves when every weight is scaled by
+    1 + 1e-7, as phase 10 does); the ranks' kernel launches; the seconds
+    of the one process."""
+    import torch
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+
+    def one_process(spec, scale=None, steps=DIST_STEPS):
+        model, opt, batch = step_case(spec)
+        if scale is not None:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(scale)
+        step = make_train_step(model, opt, torch.Generator().manual_seed(7),
+                               device=spec["device"])
+        return record_steps(step, model, batch, steps)
+
+    def references():
+        out = []
+        for spec in specs:
+            t = time.time()
+            ref = one_process(spec)
+            pert = one_process(spec, 1 + 1e-7, steps=1) if noise else None
+            out.append((ref, pert, time.time() - t))
+        return out
+
+    refs = run_ranks(dist_step_rank, (specs, out_dir), world,
+                     during=references)
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    reports = []
+    for i, (ref, pert, t_one) in enumerate(refs):
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}_{i}.pt"))
+                 for r in range(world)]
+        tb0 = ref["tb"][0]
+        if any(set(r["tb"][0]) != set(tb0) for r in ranks):
+            raise RuntimeError("the ranks' tb terms are not the one "
+                               "process's")
+        st0 = ranks[0]["state"]
+        grads = {}
+        for pre in sorted({k.split(".")[0] + "." for k in ref["grads"]}):
+            g = grad_report(ranks[0]["grads"], ref["grads"], pre)
+            if pert is not None:
+                n_ = grad_report(pert["grads"], ref["grads"], pre)
+                g.update(noise_worst_rel=n_["worst_rel"],
+                         noise_vector_rel=n_["vector_rel"])
+            grads[pre] = g
+        reports.append(dict(
+            loss=ref["loss"], loss_ranks=[r["loss"] for r in ranks],
+            loss_rel=max(rel(r["loss"][0], ref["loss"][0]) for r in ranks),
+            tb_rel={k: max(rel(r["tb"][0][k], v) for r in ranks)
+                    for k, v in tb0.items()},
+            ranks_same_bits=all(torch.equal(st0[k], r["state"][k])
+                                for r in ranks[1:] for k in st0),
+            grads=grads, launches=[r["launches"] for r in ranks],
+            one_process_s=t_one))
+    return reports
+
+
+# the dist phase's comparisons: (name, spec) over two ranks on the card
+DIST_CASES = (
+    ("scannet", dict(kind="cagroup3d", cfg=CFGS["scannet"], tiny=False)),
+    ("sunrgbd_tiny", dict(kind="cagroup3d", cfg=CFGS["sunrgbd"], tiny=True)),
+    ("rbgnet_sunrgbd_tiny", dict(kind="rbgnet", cfg=RBG_CFGS["sunrgbd"],
+                                 tiny=True)))
+DIST_CLI_SCENES, DIST_CLI_POINTS = 2, 20_000
+
+
+def phase_dist(dev, gpu, power):
+    """The dist phase: training on several cards (``--dist``), two ranks on
+    this one card over gloo (NCCL takes one rank a card), then the CLIs
+    under torchrun over NCCL.
+
+    1. For each of DIST_CASES (the ScanNet YAML's full-width CAGroup3D,
+       the tiny SUN RGB-D CAGroup3D, the tiny SUN RGB-D RBGNet; seeded,
+       votes zeroed, ``step_case``): two ranks of one scene each through
+       ``make_train_step`` over a process group, against one process of
+       the two scenes with the same parameters, batch and generator
+       (``dist_step_compare``).  Held: the first step's loss and every tb
+       term within 1e-5 relative; the ranks' parameters and BN buffers the
+       same bits after DIST_STEPS steps; per module the first update's
+       gradients (rank 0's, after the average over the ranks) within
+       phase 10's bars (the worst parameter's error and the whole
+       gradient's in norm within 2e-2 or twice what the one process moves
+       when every weight is scaled by 1 + 1e-7); K1 and K3 launched in
+       each rank (CAGroup3D), or none of K1-K3 (RBGNet).
+    2. (``DistCli``; its train run starts first and overlaps part 1.)
+       The ``train`` CLI with ``--dist`` under ``torchrun --standalone
+       --nproc_per_node 1`` (NCCL) for one epoch on a DIST_CLI_SCENES-
+       scene tree (REPEAT.train 1, B = 2), starting (``--ckpt``) from the
+       YAML's full-width model with phase 6's open gate and lifted prior,
+       so that the trained model detects; then the ``test`` CLI on its
+       checkpoint twice, under torchrun with ``--dist`` and in this
+       process without it.  Held: the runs under torchrun exit 0, the
+       checkpoint's epoch and step count, result.pkl the same bits with
+       detections in it, the same mAP and mAR lines in the two logs."""
+    import tempfile
+    t_phase, bad, cases = time.time(), [], {}
+    cli = DistCli(dev)
+    specs = [dict(base, device=str(dev), B=2, seed=21)
+             for _, base in DIST_CASES]
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+            reports = dist_step_compare(specs, tmp, noise=True)
+    except BaseException:
+        cli.abort()
+        raise
+    t_ranks = time.time() - t_phase
+    for (name, base), rep in zip(DIST_CASES, reports):
+        why = []
+        if rep["loss_rel"] >= 1e-5:
+            why.append(f"loss {rep['loss_rel']:.3g} apart")
+        worst = max(rep["tb_rel"], key=rep["tb_rel"].get)
+        if rep["tb_rel"][worst] >= 1e-5:
+            why.append(f"tb {worst} {rep['tb_rel'][worst]:.3g} apart")
+        if not rep["ranks_same_bits"]:
+            why.append("the ranks' parameters or buffers differ")
+        for pre, g in rep["grads"].items():
+            g["ok"] = (g["floor_ok"] and g["worst_rel"] <= max(
+                TOL, 2 * g["noise_worst_rel"]) and g["vector_rel"] <= max(
+                TOL, 2 * g["noise_vector_rel"]))
+            if not g["ok"]:
+                why.append(f"{pre} gradients apart")
+        kernels = base["kind"] == "cagroup3d"
+        for r, la in enumerate(rep["launches"]):
+            if kernels and min(la["sparse_conv"], la["sparse_conv_dw"]) <= 0:
+                why.append(f"rank {r} launched K1 or K3 no time: {la}")
+            if not kernels and max(la.values()) != 0:
+                why.append(f"rank {r} launched a kernel: {la}")
+        rep["ok"] = not why
+        cases[name] = rep
+        bad += [f"{name}: {w}" for w in why]
+    cli = cli.finish()
+    bad += cli.pop("bad")
+    emit({"phase": "dist", "ok": not bad, "gpu": gpu, "power_limit": power,
+          "ranks": 2, "cases": cases, "cli": cli, "ranks_seconds": t_ranks,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("dist", "; ".join(bad))
+    return {k: sum(la[k] for c in cases.values() for la in c["launches"])
+            for k in ("sparse_conv", "segsum", "sparse_conv_dw")}
+
+
+class DistCli:
+    """Part 2 of the dist phase.  ``DistCli(dev)`` writes the tree and the
+    start checkpoint and starts the ``train`` CLI under torchrun in the
+    background (its start-up overlaps part 1); ``finish()`` waits for it,
+    runs the ``test`` CLI on its checkpoint under torchrun and here, and
+    returns the report with ``bad``.  Each run's log lines (on stderr,
+    with times) are kept in the report."""
+
+    def __init__(self, dev):
+        import tempfile
+        from cagroup3d_tpu_torch.models import load_config
+        from cagroup3d_tpu_torch.training.checkpoint import save_checkpoint
+        from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
+        self.cfg_path = CFGS["scannet"]
+        cfg = load_config(self.cfg_path)
+        self.env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.torchrun = [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node", "1", "-m"]
+        self.out, self.bad = {}, []
+        self._tmp = tempfile.TemporaryDirectory(
+            prefix="chip_smoke_dist_cli_")
+        self.tmp = self._tmp.name
+        tree = os.path.join(self.tmp, "tree")
+        write_indoor_tree(tree, "scannet", cfg.CLASS_NAMES, DIST_CLI_SCENES,
+                          n_points=DIST_CLI_POINTS, seed=3)
+        start = os.path.join(self.tmp, "start.pkl")
+        save_checkpoint(start, build_model(copy.deepcopy(cfg.MODEL),
+                                           len(cfg.CLASS_NAMES), dev, seed=0))
+        self.data = ["--set", "DATA_CONFIG.DATA_PATH", tree,
+                     "DATA_CONFIG.POINT_CAP", str(DIST_CLI_POINTS),
+                     "DATA_CONFIG.REPEAT.train", "1"]
+        self.train = self._start("train", [
+            "cagroup3d_tpu_torch.tools.train", "--dist", "--cfg_file",
+            self.cfg_path, "--batch_size", "2", "--epochs", "1", "--ckpt",
+            start, *self.data])
+
+    def _start(self, name, args):
+        cwd = os.path.join(self.tmp, name)
+        os.makedirs(cwd)
+        err = open(os.path.join(self.tmp, name + ".err"), "w")
+        proc = subprocess.Popen(self.torchrun + args, cwd=cwd, env=self.env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+        return name, proc, err, time.time()
+
+    def _wait(self, run):
+        name, proc, err, t0 = run
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        err.close()
+        with open(err.name) as f:
+            text = f.read()
+        log = re.findall(r"\d\d:\d\d:\d\d,\d+ .*", text)
+        self.out[name] = dict(rc=rc, seconds=time.time() - t0,
+                              log=log[:6] + log[-3:])
+        if rc != 0:
+            self.bad.append(f"{name} exited {rc}: {text[-2000:]}")
+        return rc == 0
+
+    def abort(self):
+        """Stop the train run and remove the tree (part 1 failed)."""
+        self.train[1].kill()
+        self.train[1].wait()
+        self.train[2].close()
+        self._tmp.cleanup()
+
+    def finish(self):
+        import glob
+        try:
+            ok = self._wait(self.train)
+            ckpts = glob.glob(os.path.join(self.tmp, "train", "**",
+                                           "checkpoint_epoch_1.pkl"),
+                              recursive=True, include_hidden=True)
+            if ok and len(ckpts) == 1:
+                self._test(ckpts[0])
+            elif ok:
+                self.bad.append(f"checkpoints written: {ckpts}")
+        finally:
+            self._tmp.cleanup()
+        return dict(self.out, bad=self.bad)
+
+    def _test(self, ckpt):
+        import glob
+        import pickle
+        from cagroup3d_tpu_torch.tools import test as test_cli
+        with open(ckpt, "rb") as f:
+            ck = pickle.load(f)
+        out, bad = self.out, self.bad
+        out["checkpoint"] = (ck["epoch"], ck["it"])
+        if out["checkpoint"] != (1, DIST_CLI_SCENES // 2):
+            bad.append(f"checkpoint (epoch, it) {out['checkpoint']}")
+        test = ["--cfg_file", self.cfg_path, "--ckpt", ckpt, *self.data]
+        run = self._start("test_dist", ["cagroup3d_tpu_torch.tools.test",
+                                        "--dist", *test])
+        os.makedirs(os.path.join(self.tmp, "test_one"))
+        cwd, t = os.getcwd(), time.time()
+        try:                            # the one process: this one
+            os.chdir(os.path.join(self.tmp, "test_one"))
+            test_cli.main(*test_cli.parse_config(test))
+        finally:
+            os.chdir(cwd)
+        out["test_one"] = dict(seconds=time.time() - t)
+        if not self._wait(run):
+            return
+        res, maps = {}, {}
+        for name in ("test_dist", "test_one"):
+            (pkl,) = glob.glob(os.path.join(self.tmp, name, "**",
+                                            "result.pkl"), recursive=True,
+                               include_hidden=True)
+            with open(pkl, "rb") as f:
+                res[name] = pickle.load(f)
+            (log,) = glob.glob(os.path.join(os.path.dirname(pkl),
+                                            "log_eval_*.txt"))
+            with open(log) as f:
+                maps[name] = re.findall(r"(m(?:AP|AR)_0\.\d+: \S+)",
+                                        f.read())
+        a, b = res["test_dist"], res["test_one"]
+        same = len(a) == len(b) == DIST_CLI_SCENES and all(
+            x.keys() == y.keys() and all(
+                str(x[k]) == str(y[k]) if k == "frame_id" else
+                x[k].tobytes() == y[k].tobytes() for k in x)
+            for x, y in zip(a, b))
+        out.update(result_same_bits=same, maps=maps,
+                   detections=sum(len(x["labels_3d"]) for x in b))
+        if not same or out["detections"] == 0:
+            bad.append("result.pkl of the test CLI with --dist differs "
+                       "from the one process's, or holds no detection")
+        if maps["test_dist"] != maps["test_one"] or \
+                len(maps["test_one"]) != 4:
+            bad.append(f"the mAP lines differ: {maps}")
+
+
+def kernel_line(res, rbg, dist):
     """The ``kernels`` line: each kernel's launches summed over the paths'
     main-path runs (K1, K3: the timed training steps; K2: the requests)
     and, as ``train_cli_launches``, over the ``train`` CLI's runs (K1, K3:
-    its steps; K2: the ``test`` CLI on its checkpoint), and, as
-    ``rbgnet_launches``, over every RBGNet run (none launches a kernel);
-    its largest error over every replay, and its times from the ScanNet
-    path, with each path's own beside them."""
+    its steps; K2: the ``test`` CLI on its checkpoint), as
+    ``rbgnet_launches``, over every RBGNet run (none launches a kernel),
+    and, as ``dist_launches``, over the dist phase's ranks; its largest
+    error over every replay, and its times from the ScanNet path, with
+    each path's own beside them."""
     def times(st):
         return {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
@@ -2097,6 +2582,7 @@ def kernel_line(res, rbg):
                     "train_cli_launches": sum(v["train_cli_launches"]
                                               for v in paths.values()),
                     "rbgnet_launches": sum(r[counter] for r in rbg.values()),
+                    "dist_launches": dist[counter],
                     "max_abs_err": max(err(r) for r in res.values()),
                     "paths": paths})
     return {"kernels": out}
@@ -2154,7 +2640,9 @@ def main():
     for path in (RbgPath("scannet", JAX_LEARN_DROP_RBG),
                  RbgPath("sunrgbd", JAX_LEARN_DROP_RBG_YAW)):
         rbg[path.name] = run_rbg_path(dev, gpu, power, path)
-    emit(kernel_line(res, rbg))
+    # training over two ranks, and the CLIs with --dist --------------------
+    dist = phase_dist(dev, gpu, power)
+    emit(kernel_line(res, rbg, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -28,7 +28,8 @@ prior lifted), answers three warm-up 100k-point scenes (synthetic seeds
 4. bits    -- two direct ``forward_eval`` calls on scene 0: whether
    their outputs are the same bits and, if not, the first recorded stage
    or float-summing op whose outputs differ, and whether its inputs were
-   the same (``two_calls``).
+   the same (``two_calls``).  Different bits fail the run (exit 1, after
+   the line): every float sum of the eval forward has a fixed order.
 5. train   -- the training step of ``chip_smoke.py`` phase 9 (the YAML's
    BATCH_SIZE_PER_GPU full-width scenes, AdamW): after one warm-up step,
    the host-clock ms of
@@ -114,8 +115,9 @@ def same_bits(a, b):
 def two_calls(model, batch):
     """Two direct ``forward_eval`` calls on one batch, recording the outputs
     (and inputs) of every stage (backbone, dense head, proposals, RoI head)
-    and op that sums floats in an order it may not fix (the backbone's
-    ``avg_pool`` and ``interpolate_at``) or that must not (K1, K2).
+    and op that sums floats (the backbone's ``avg_pool`` and
+    ``interpolate_at``, the head maps' fixed-order ``segment_sum``, K1,
+    K2).
     Returns (same bits, None or the first recorded call whose outputs
     differ: its name, index and whether its inputs were the same)."""
     import torch
@@ -124,6 +126,7 @@ def two_calls(model, batch):
     from cagroup3d_tpu_torch.models.backbones_3d import biresnet
     targets = [(biresnet, "avg_pool"), (biresnet, "interpolate_at"),
                (core_conv, "sparse_conv"), (core_vox, "segment_sums"),
+               (core_vox, "segment_sum"),
                (model.backbone_3d, "forward"), (model.dense_head, "forward"),
                (model.dense_head, "get_bboxes"), (model.roi_head, "forward")]
 
@@ -408,6 +411,11 @@ def main():
     same, apart = two_calls(model, batches[0])
     emit({"phase": "bits", **card, "two_calls_same_bits": same,
           "first_apart": apart}, log)
+    if not same:
+        write(log, args.out)
+        print("profile_port: two forward_eval calls on one batch give "
+              "different bits", file=sys.stderr)
+        return 1
 
     # 5. train -------------------------------------------------------------
     from chip_smoke import STEPS_PER_EPOCH, open_gate, synthetic_train_batch

@@ -274,6 +274,7 @@ def test_port_imports_no_jax():
         "import cagroup3d_tpu_torch.tools.test\n"
         "import cagroup3d_tpu_torch.tools.train\n"
         "import cagroup3d_tpu_torch.tools.overfit_check\n"
+        "import cagroup3d_tpu_torch.utils.commu_utils\n"
         "from chip_smoke import synthetic_train_batch\n"
         "for name in ('scannet', 'sunrgbd'):\n"
         "    cfg = load_config(f'tools/cfgs/{name}_models/CAGroup3D.yaml')\n"

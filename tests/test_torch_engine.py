@@ -241,6 +241,25 @@ def test_avg_pool(k, s):
     assert _rel(out.feats, jout.feats) < 1e-5
 
 
+@pytest.mark.parametrize("k,s,out_cap", [(5, 2, 1024), (9, 4, 512),
+                                         (17, 8, 256), (33, 16, 128)])
+def test_avg_pool_dappm_shapes(k, s, out_cap):
+    """The DAPPM pools at their largest tables (2048 source rows, the
+    JAX package's membership matmul): values and the VJP w.r.t. the
+    source features (the fixed-order segment sum is differentiable)."""
+    jst, st = _tables(11, P=2600, side=48, C=16, cap=2048, stride=4)
+    feats = st.feats.clone().requires_grad_(True)
+    out = pooling.avg_pool(st.with_feats(feats), k, s, out_cap)
+    jout, vjp = jax.vjp(lambda f: jpool.avg_pool(jst.with_feats(f), k, s,
+                                                 out_cap).feats, jst.feats)
+    _eq(out.coords, jpool.avg_pool(jst, k, s, out_cap).coords)
+    assert int(out.valid.sum()) > out_cap // 8
+    assert _rel(out.feats.detach(), jout) < 1e-5
+    cot = np.random.RandomState(s).randn(*jout.shape).astype(np.float32)
+    out.feats.backward(_t(cot))
+    assert _rel(feats.grad, vjp(jnp.asarray(cot))[0]) < 1e-5
+
+
 def test_interpolate_at():
     jst, st = _tables(10, P=400, side=10, C=6, cap=512, stride=4)
     rs = np.random.RandomState(11)

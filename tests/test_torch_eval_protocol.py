@@ -43,7 +43,7 @@ from cagroup3d_tpu_torch.training.checkpoint import save_checkpoint
 from cagroup3d_tpu_torch.utils.synthetic import (points_in_boxes,
                                                  synthetic_scene,
                                                  write_indoor_tree)
-from chip_smoke import CFGS, build_model, tiny_model
+from chip_smoke import CFGS, build_model, cpu_caps, tiny_model
 
 # the JAX package's datasets/__init__.py binds the name to the function
 jev = importlib.import_module("cagroup3d_tpu.datasets.indoor_eval")
@@ -366,11 +366,7 @@ def _tiny_cfg(cfg, root):
     conv (the plain sparse conv's cost on the CPU follows the caps and the
     kernel volume: about 0.8 s a forward instead of 4 s)."""
     tiny_model(cfg.MODEL)
-    cfg.MODEL.BACKBONE_3D.CAPS = {1: 1024, 2: 1024, 4: 512, 8: 256, 16: 128,
-                                  32: 64, 64: 16, 128: 8, 256: 8, 512: 8}
-    cfg.MODEL.INPUT_CAP = 1024
-    cfg.MODEL.DENSE_HEAD.update(CLS_KERNEL=3, FINE_CAP=256, EXPAND_CAP=256)
-    cfg.MODEL.ROI_HEAD.GRID_CAP = 512
+    cpu_caps(cfg.MODEL)
     cfg.DATA_CONFIG.DATA_PATH = str(root)
     cfg.DATA_CONFIG.POINT_CAP = SCENE["n_points"]
     return cfg
@@ -530,10 +526,16 @@ def test_cli_eval_all_in_epoch_order(harness, monkeypatch, tmp_path):
 
 
 def test_dist_and_missing_card_raise(harness, monkeypatch, tmp_path):
+    """``--dist`` outside torchrun, and ``eval_one_epoch(dist=True)``
+    without a process group, raise instead of running one process
+    (``tests/test_torch_dist.py`` runs them over two ranks)."""
     h = harness
-    with pytest.raises(NotImplementedError, match="dist"):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         _cli(h, ["--ckpt", "x.pkl", "--dist"], monkeypatch, tmp_path)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="process group"):
         peu.eval_one_epoch(h["model"], None, [], 0, None, dist=True)
     args, _ = cli.parse_config(["--cfg_file", CFGS["scannet"]])
     assert args.device == "cuda"

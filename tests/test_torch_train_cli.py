@@ -38,7 +38,7 @@ from cagroup3d_tpu_torch.tools import train as cli
 from cagroup3d_tpu_torch.training import train_loop
 from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
 
-from chip_smoke import tiny_model
+from dist_jobs import tiny_cli_cfg
 
 REPO = Path(__file__).resolve().parent.parent
 NAMES = ("scannet", "sunrgbd")
@@ -77,24 +77,8 @@ def _plain(d):
 def _tiny(cfg, root, repeat=None):
     """The YAML's model at tiny widths (``chip_smoke.tiny_model``, half its
     caps, a k3 class conv) on the tree at ``root``, every point loaded;
-    ``repeat`` sets the train split's REPEAT."""
-    tiny_model(cfg.MODEL)
-    cfg.MODEL.BACKBONE_3D.CAPS = {1: 1024, 2: 1024, 4: 512, 8: 256, 16: 128,
-                                  32: 64, 64: 16, 128: 8, 256: 8, 512: 8}
-    cfg.MODEL.INPUT_CAP = 1024
-    cfg.MODEL.DENSE_HEAD.update(CLS_KERNEL=3, FINE_CAP=256, EXPAND_CAP=256)
-    cfg.MODEL.ROI_HEAD.GRID_CAP = 512
-    dc = cfg.DATA_CONFIG
-    dc.DATA_PATH = str(root)
-    dc.POINT_CAP = SCENE["n_points"]
-    dc.MAX_GT = 16
-    for aug in (dc.DATA_AUGMENTOR_TRAIN, dc.DATA_AUGMENTOR_TEST):
-        for st in aug.AUG_CONFIG_LIST:
-            if st.NAME == "indoor_point_sample":
-                st.num_points = SCENE["n_points"]
-    if repeat is not None:
-        dc.REPEAT.train = repeat
-    return cfg
+    ``repeat`` sets the train split's REPEAT (``dist_jobs.tiny_cli_cfg``)."""
+    return tiny_cli_cfg(cfg, root, SCENE["n_points"], repeat)
 
 
 @pytest.fixture(scope="module")
@@ -289,7 +273,7 @@ def test_checkpoint_loads_in_both_packages(trained, trees, monkeypatch,
 def test_max_ckpt_save_num_prunes(trees, monkeypatch, tmp_path):
     """Three epochs with ``--max_ckpt_save_num 2`` keep the last two
     checkpoints (the step itself is a stub: pruning is the loop's)."""
-    def fake_step(model, optimizer, generator, device):
+    def fake_step(model, optimizer, generator, device, **kw):
         def step(batch, cur_epoch=0.0):
             optimizer.count += 1
             return torch.tensor(1.0), {}
@@ -335,7 +319,12 @@ def test_ckpt_loads_jax_checkpoint(trees, monkeypatch, tmp_path):
 
 
 def test_dist_and_missing_card_raise(trees, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="dist"):
+    """``--dist`` outside torchrun raises instead of training in one
+    process (``tests/test_torch_dist.py`` trains over two ranks)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         _run("scannet", trees["scannet"], ["--dist"], monkeypatch, tmp_path)
     args, _ = cli.parse_config(["--cfg_file",
                                 str(REPO / _cfg_file("scannet"))])
@@ -344,3 +333,89 @@ def test_dist_and_missing_card_raise(trees, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _run("scannet", trees["scannet"], ["--device", "cuda"], monkeypatch,
              tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the NaN guard (tests/test_nan_guard.py's cases on the port's step) and
+# --profile_dir / --workers
+# ---------------------------------------------------------------------------
+
+class _StubModel(torch.nn.Module):
+    """The training step's model contract at its smallest:
+    forward_train(batch, generator, cur_epoch, roi_draws) -> (loss, tb,
+    running-stat updates)."""
+
+    def __init__(self, w):
+        super().__init__()
+        self.w = torch.nn.Parameter(w)
+        self.register_buffer("ema", torch.zeros(()))
+
+    def forward_train(self, batch, generator, cur_epoch=0.0, roi_draws=None):
+        h = torch.tanh(batch["x"] @ self.w)
+        loss = torch.log1p(h ** 2).mean()
+        return loss, {"loss": loss}, {"ema": self.ema * 0.9 + loss * 0.1}
+
+
+def _stub(poison=False):
+    from cagroup3d_tpu_torch.config import EasyDict
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+    from cagroup3d_tpu_torch.training.optimization import Optimizer
+    w = torch.ones(8, 4) * 0.3
+    if poison:
+        w[0, 0] = float("nan")
+    model = _StubModel(w)
+    opt = Optimizer(model.parameters(), EasyDict(OPTIMIZER="adam", LR=1e-3),
+                    1)
+    batch = {"x": torch.from_numpy(np.random.RandomState(0).randn(16, 8)
+                                   .astype(np.float32))}
+    return model, opt, batch, make_train_step
+
+
+def test_nan_guard_clean_step_passes():
+    model, opt, batch, make_train_step = _stub()
+    loss, tb = make_train_step(model, opt, device="cpu", nan_guard=True)(
+        batch)
+    assert np.isfinite(float(loss))
+
+
+def test_nan_guard_poisoned_params_raise():
+    model, opt, batch, make_train_step = _stub(poison=True)
+    step = make_train_step(model, opt, device="cpu", nan_guard=True)
+    with pytest.raises(FloatingPointError, match="(?i)nan|inf"):
+        step(batch)
+    assert torch.isnan(model.w[0, 0]) and float(model.ema) == 0.0
+
+
+def test_nan_guard_env_var_enables_guard(monkeypatch):
+    monkeypatch.setenv("CAGROUP_NAN_GUARD", "1")
+    model, opt, batch, make_train_step = _stub(poison=True)
+    with pytest.raises(FloatingPointError, match="non-finite loss"):
+        make_train_step(model, opt, device="cpu")(batch)
+
+
+def test_nan_guard_off_by_default(monkeypatch):
+    monkeypatch.delenv("CAGROUP_NAN_GUARD", raising=False)
+    model, opt, batch, make_train_step = _stub(poison=True)
+    loss, _ = make_train_step(model, opt, device="cpu")(batch)
+    # the unguarded step silently produces a non-finite loss (what the
+    # guard exists to catch loudly)
+    assert not np.isfinite(float(loss))
+
+
+def test_profile_dir_and_workers(trees, monkeypatch, tmp_path):
+    """``--profile_dir`` writes a torch.profiler trace of the run;
+    ``--workers`` is accepted (the loader collates in one thread).  The
+    step is a stub with one torch op: the trace is the CLI's."""
+    def fake_step(model, optimizer, generator, device, **kw):
+        def step(batch, cur_epoch=0.0):
+            optimizer.count += 1
+            return torch.ones(3).sum(), {}
+        return step
+
+    monkeypatch.setattr(train_loop, "make_train_step", fake_step)
+    trace = tmp_path / "trace"
+    _run("scannet", trees["scannet"], ["--epochs", "1", "--workers", "2",
+                                       "--profile_dir", str(trace)],
+         monkeypatch, tmp_path)
+    text = (trace / "trace.json").read_text()
+    assert '"traceEvents"' in text and "aten::" in text

@@ -196,8 +196,43 @@ def test_paired_maps_train(off):
         _eq(a, b)
     assert _rel(ff, jff) < 1e-2
     assert _rel(cf, jcf) < 1e-2
-    (ff.sum() + cf.sum()).backward()          # differentiable in training
+    # the gradient w.r.t. the shared rows against the JAX VJP
+    rs = np.random.RandomState(8)
+    cf_cot, cc_cot = (rs.randn(*a.shape).astype(np.float32)
+                      for a in (jff, jcf))
+    _, vjp = jax.vjp(lambda f: tuple(
+        m[1] for m in jvox.unique_voxels_classes_paired(
+            jnp.asarray(lat), f, jnp.asarray(sel), 64, 32, 3,
+            drop_offset=jd, train=True)[:2]), jnp.asarray(feats))
+    torch.autograd.backward((ff, cf), (_t(cf_cot), _t(cc_cot)))
+    jg = vjp((jnp.asarray(cf_cot), jnp.asarray(cc_cot)))[0]
     assert float(ft.grad.abs().sum()) > 0
+    assert _rel(ft.grad, jg) < 1e-2
+
+
+@pytest.mark.parametrize("off", [None, 5])
+def test_unique_voxels_mean_train(off):
+    """The mean-mode voxel table under a training window: the per-voxel
+    sums (fixed-order ``segment_sum``) and their VJP against the JAX
+    package's."""
+    rs = np.random.RandomState(3)
+    lat = rs.randint(0, 9, (600, 3)).astype(np.int32)
+    feats = rs.randn(600, 5).astype(np.float32)
+    valid = rs.rand(600) < 0.9
+    ft = _t(feats).requires_grad_(True)
+    st, inv = voxelize.unique_voxels(_t(lat), ft, _t(valid), 256,
+                                     drop_offset=off)
+    jd = None if off is None else jnp.int32(off)
+    fn = jax.jit(lambda f: jvox.unique_voxels(
+        jnp.asarray(lat), f, jnp.asarray(valid), 256, drop_offset=jd))
+    jst, jinv = fn(feats)
+    _eq(st.coords, jst.coords)
+    _eq(inv, jinv)
+    assert _rel(st.feats.detach(), jst.feats) < 1e-6
+    cot = rs.randn(*jst.feats.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: fn(f)[0].feats, jnp.asarray(feats))
+    st.feats.backward(_t(cot))
+    assert _rel(ft.grad, vjp(jnp.asarray(cot))[0]) < 1e-5
 
 
 # ------------------------------------------------------------ the losses
