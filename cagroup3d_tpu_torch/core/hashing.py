@@ -6,8 +6,16 @@ least significant field); a coordinate set is indexed by sorting its keys
 once, and "which row holds coordinate q?" is a binary search
 (``torch.searchsorted``).  Invalid or out-of-range coordinates get
 ``INVALID_KEY``, which sorts after every packable key.
+
+The bits are module-global, as in the JAX package.  A model whose lattice
+needs other bits (SECOND on KITTI: (11, 11, 8)) holds them itself and
+sets them only around its own forward with ``key_bits_scope``, so a
+model built after it in the same process still packs at the defaults.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -24,6 +32,28 @@ def set_key_bits(x: int = 10, y: int = 10, z: int = 10) -> None:
     if not (x + y + z <= 30 and z >= 5):
         raise ValueError(f"bad key bits {(x, y, z)}")
     XBITS, YBITS, ZBITS = x, y, z
+
+
+def key_bits():
+    return (XBITS, YBITS, ZBITS)
+
+
+_scope_lock = threading.RLock()
+
+
+@contextlib.contextmanager
+def key_bits_scope(bits):
+    """Pack keys at ``bits`` (x, y, z) inside the block and restore the
+    previous bits on exit.  The lock keeps another thread from packing at
+    these bits meanwhile (the training step's scene threads run one model,
+    so they share its bits)."""
+    with _scope_lock:
+        old = key_bits()
+        set_key_bits(*bits)
+        try:
+            yield
+        finally:
+            set_key_bits(*old)
 
 
 def key_shifts():

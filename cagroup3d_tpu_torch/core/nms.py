@@ -5,7 +5,11 @@ nms_normal_gpu (axis-aligned BEV IoU, ScanNet), ``rotated=True`` its
 nms_gpu (rotated BEV IoU, SUN RGB-D).  The classes are a batch axis: one
 greedy pass in score order over the candidates suppresses in every class
 at once.  Ties break toward the lower index everywhere, as
-``jax.lax.top_k`` and the stable ``jnp.argsort`` do.
+``jax.lax.top_k`` and the stable ``jnp.argsort`` do.  The IoU matrix is
+built in blocks of rows of at most ``BLOCK_PAIRS`` pairs each: the rotated
+overlap clips every pair's polygon to 64 vertices, so one [4096, 4096]
+block would hold tens of GB at once.  Each pair's value is computed alone,
+so the blocks give the matrix's values and the greedy pass its order.
 """
 from __future__ import annotations
 
@@ -14,12 +18,26 @@ import torch
 from .geometry import iou_bev_aligned, iou_bev_rotated, pairwise
 
 NEG_INF = -1e10
+BLOCK_PAIRS = 1 << 20
 
 
 def topk_stable(x: torch.Tensor, k: int):
     """Top-k along the last axis, ties to the lower index: (values, idx)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def overlap_matrix(boxes7: torch.Tensor, iou_thr: float, rotated: bool,
+                   block_pairs: int = BLOCK_PAIRS) -> torch.Tensor:
+    """IoU(boxes7[..., i], boxes7[..., j]) > iou_thr as bool [..., N, N],
+    computed in blocks of rows of at most ``block_pairs`` pairs."""
+    n = boxes7.shape[-2]
+    iou_fn = iou_bev_rotated if rotated else iou_bev_aligned
+    rows = max(1, block_pairs // max(1, boxes7[..., 0].numel()))
+    if rows >= n:
+        return pairwise(iou_fn, boxes7, boxes7) > iou_thr
+    return torch.cat([pairwise(iou_fn, boxes7[..., i:i + rows, :], boxes7)
+                      > iou_thr for i in range(0, n, rows)], dim=-2)
 
 
 def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
@@ -32,8 +50,7 @@ def greedy_nms(boxes7: torch.Tensor, scores: torch.Tensor,
     order = torch.argsort(-s, dim=-1, stable=True)
     b = torch.gather(boxes7.detach(), -2, order[..., None].expand_as(boxes7))
     v = torch.gather(valid, -1, order)
-    iou_fn = iou_bev_rotated if rotated else iou_bev_aligned
-    over = pairwise(iou_fn, b, b) > iou_thr                   # [..., N, N]
+    over = overlap_matrix(b, iou_thr, rotated)                # [..., N, N]
     keep = torch.zeros_like(v)
     suppressed = torch.zeros_like(v)
     for i in range(n):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.segsum import segment_sums
@@ -79,6 +80,21 @@ def _window_slots(uid: torch.Tensor, ok: torch.Tensor, n_unique, cap: int,
     slot = torch.where(uid < wrap, uid, uid - o + wrap)
     kept = ok & ((uid < wrap) | (uid >= o)) & (slot < cap) & (slot >= 0)
     return slot, kept
+
+
+def arrival_rank(lat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-point rank within its voxel in arrival (row) order: the i-th
+    valid point landing in a voxel gets rank i, as spconv's voxelizer fills
+    a voxel with the first MAX_POINTS_PER_VOXEL points of the array.
+    Invalid rows get 2^30.  lat i32[P, 3], valid bool[P] -> i32[P]."""
+    keys = pack_coords(lat, valid)
+    idx = torch.arange(keys.shape[0], dtype=torch.int32, device=lat.device)
+    sk, order = torch.sort(keys, stable=True)
+    start = torch.cummax(torch.where(_heads(sk), idx, torch.zeros_like(idx)),
+                         0).values
+    rank = torch.empty_like(idx)
+    rank[order] = idx - start
+    return torch.where(valid, rank, torch.full_like(rank, 1 << 30))
 
 
 def unique_voxels(lat: torch.Tensor, feats: torch.Tensor,
@@ -266,3 +282,51 @@ def _paired_coarse(cap_coarse, coarse_factor, f_coords, f_valid, f_sum,
     c_valid = c_cnt > 0
     c_feats = zero_invalid(c_sum / c_cnt.clamp(min=1)[..., None], c_valid)
     return (c_coords, c_feats, c_valid), of_coarse
+
+
+def triple(v):
+    """An int or a 3-sequence as a tuple of 3 ints."""
+    return tuple(int(x) for x in np.broadcast_to(np.asarray(v), (3,)))
+
+
+def spconv_reduce_lat(lat: torch.Tensor, valid: torch.Tensor, kernel, stride,
+                      padding, cap: int, stats: Optional[dict] = None,
+                      stat_name: str = "spconv", in_extent=None):
+    """Output lattice of an spconv strided SparseConv3d: output o exists
+    iff some input lies in its receptive field o*s - p + [0, k) (not ME's
+    floor division).  Per axis an input i has the candidates o in
+    [ceil((i + p - k + 1) / s), floor((i + p) / s)], at most 1 + (k-1)//s
+    of them, each checked against the receptive field.  ``in_extent``
+    (the input's dense extent) clamps outputs to the dense output extent
+    (X + 2p - k)//s + 1, past which spconv makes no voxel.  lat i32[N, 3]
+    in input lattice units; kernel/stride/padding ints or triples.
+    Returns (out_lat i32[cap, 3] in output lattice units, key-sorted with
+    invalid rows last, out_valid bool[cap])."""
+    k, s, p = triple(kernel), triple(stride), triple(padding)
+    dev = lat.device
+    out_extent = None
+    if in_extent is not None:
+        e = triple(in_extent)
+        out_extent = torch.tensor([(e[a] + 2 * p[a] - k[a]) // s[a] + 1
+                                   for a in range(3)], dtype=torch.int32,
+                                  device=dev)
+    n_opts = [1 + (k[a] - 1) // s[a] for a in range(3)]
+    st, pt, kt = (torch.tensor(v, dtype=torch.int32, device=dev)
+                  for v in (s, p, k))
+    lat = lat.to(torch.int32)
+    base = floor_div(lat + pt - kt + 1 + st - 1, st)      # first candidate
+    cands, oks = [], []
+    for d in np.ndindex(*n_opts):
+        o = base + torch.tensor(d, dtype=torch.int32, device=dev)
+        lo = o * st - pt
+        ok = ((lat >= lo) & (lat < lo + kt)).all(-1) & (o >= 0).all(-1) & \
+            valid
+        if out_extent is not None:
+            ok = ok & (o < out_extent).all(-1)
+        cands.append(o)
+        oks.append(ok)
+    lat_c = torch.cat(cands)
+    dummy = torch.zeros(lat_c.shape[0], 1, device=dev)
+    ded, _ = unique_voxels(lat_c, dummy, torch.cat(oks), cap, mode="first",
+                           stats=stats, stat_name=stat_name)
+    return ded.coords, ded.valid

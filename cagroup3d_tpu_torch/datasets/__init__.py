@@ -1,8 +1,8 @@
-"""Indoor datasets, their loader and evaluator (the pcdet surface).
+"""Datasets, their loader and evaluators (the pcdet surface).
 
 The port's own copy of ``cagroup3d_tpu/datasets/__init__.py`` for the two
-indoor datasets: ``DataLoader`` (rank slicing, shuffling by ``seed +
-epoch``, a prefetch thread) and ``build_dataloader``.  The loader yields
+indoor datasets and KITTI (eval): ``DataLoader`` (rank slicing, shuffling
+by ``seed + epoch``, a prefetch thread) and ``build_dataloader``.  The loader yields
 the same padded numpy batches as the JAX package's; what the model reads
 is moved to its device by the caller (``training/eval_utils.py``).
 """
@@ -15,14 +15,16 @@ from typing import Iterator
 import numpy as np
 
 from .dataset import DatasetTemplate
+from .kitti_dataset import KittiDataset
 from .scannet_dataset import ScannetDataset
 from .sunrgbd_dataset import SunrgbdDataset
 
 PREFETCH = 2   # batches the loader's thread collates ahead
 DATASETS = {"ScannetDataset": ScannetDataset,
-            "SunrgbdDataset": SunrgbdDataset}
+            "SunrgbdDataset": SunrgbdDataset,
+            "KittiDataset": KittiDataset}
 
-__all__ = ["DataLoader", "DatasetTemplate", "ScannetDataset",
+__all__ = ["DataLoader", "DatasetTemplate", "KittiDataset", "ScannetDataset",
            "SunrgbdDataset", "build_dataloader"]
 
 

@@ -1,7 +1,8 @@
 """Dataset template and the static-shape padded collate.
 
-The port's own copy of the indoor part of ``cagroup3d_tpu/datasets/
-dataset.py`` (the reference's pcdet/datasets/dataset.py).  Its collate
+The port's own copy of ``cagroup3d_tpu/datasets/dataset.py`` (the
+reference's pcdet/datasets/dataset.py): the indoor template and the
+outdoor sample preparation (``prepare_outdoor_sample``).  The collate
 pads every scene to static capacities (``POINT_CAP`` points, ``MAX_GT``
 boxes) with validity masks, so a batch is a dict of fixed-shape numpy
 arrays ``[B, ...]`` with the same keys, shapes and dtypes as the JAX
@@ -41,7 +42,99 @@ def mask_points_and_boxes_outside_range(data_dict, pc_range,
     return data_dict
 
 
+def parse_sample_points(dataset_cfg, mode):
+    """NUM_POINTS[mode] of the 'sample_points' DATA_PROCESSOR entry
+    (-1/absent -> None)."""
+    for proc in dataset_cfg.get("DATA_PROCESSOR", []):
+        if proc.get("NAME") == "sample_points":
+            n = int(dict(proc.get("NUM_POINTS", {})).get(mode, -1))
+            return n if n > 0 else None
+    return None
+
+
+def sample_points_depth_split(points, num_points, rs):
+    """DataProcessor 'sample_points' (data_processor.py:145-175): when
+    downsampling, keep ALL far points (depth >= 40 m) and fill the rest
+    from near points — preserves the sparse far field PointRCNN needs.
+    Upsampling pads with duplicate draws like the reference."""
+    if num_points == len(points):
+        return points
+    if num_points < len(points):
+        depth = np.linalg.norm(points[:, :3], axis=1)
+        far = np.flatnonzero(depth >= 40.0)
+        near = np.flatnonzero(depth < 40.0)
+        if num_points > len(far):
+            pick_near = rs.choice(near, num_points - len(far),
+                                  replace=False)
+            choice = np.concatenate([pick_near, far]) if len(far) \
+                else pick_near
+        else:
+            choice = rs.choice(len(points), num_points, replace=False)
+    else:
+        extra = rs.choice(len(points), num_points - len(points),
+                          replace=len(points) < num_points - len(points))
+        choice = np.concatenate([np.arange(len(points)), extra])
+    rs.shuffle(choice)
+    return points[choice]
+
+
+def prepare_outdoor_sample(data_dict, rs, *, augmentor, shuffle_points,
+                           class_names, pc_range, point_cap, max_gt,
+                           box_dim=7, sample_num_points=None):
+    """Shared outdoor train/eval prep: augment (train) -> shuffle ->
+    range mask -> sample_points -> class filter -> pad to static caps.
+
+    Condenses the reference's DatasetTemplate.prepare_data +
+    DataProcessor chain (dataset.py:88-158, data_processor.py) for the
+    padded static-shape TPU collate.  `rs` is a per-frame seeded
+    RandomState so eval is deterministic across runs.  gt_boxes are
+    padded to [max_gt, box_dim + 1] with the class label in the last
+    column (7-dof boxes, or 9-dof with velocity for nuScenes).
+    """
+    if augmentor is not None:
+        data_dict["gt_boxes_mask"] = np.isin(
+            data_dict["gt_names"], class_names)
+        data_dict = augmentor.forward(data_dict)
+    if shuffle_points:
+        perm = rs.permutation(len(data_dict["points"]))
+        data_dict["points"] = data_dict["points"][perm]
+    pts = data_dict["points"]
+    rng = np.asarray(pc_range)
+    keep = np.all((pts[:, :3] >= rng[:3]) & (pts[:, :3] < rng[3:6]),
+                  axis=1)
+    pts = pts[keep]
+    if sample_num_points and len(pts):
+        pts = sample_points_depth_split(
+            pts, min(int(sample_num_points), point_cap), rs)
+    boxes = data_dict["gt_boxes"]
+    names = data_dict["gt_names"]
+    cls_mask = np.isin(names, class_names)
+    boxes, names = boxes[cls_mask], names[cls_mask]
+    labels = np.asarray([class_names.index(n) for n in names],
+                        np.int32) if len(names) else np.zeros((0,),
+                                                              np.int32)
+    P, G, W = point_cap, max_gt, box_dim
+    out_pts = np.zeros((P, pts.shape[1]), np.float32)
+    out_val = np.zeros((P,), bool)
+    n = min(len(pts), P)
+    sel = rs.choice(len(pts), n, replace=False) if len(pts) > P \
+        else np.arange(len(pts))
+    out_pts[:n] = pts[sel][:n]
+    out_val[:n] = True
+    gb = np.zeros((G, W + 1), np.float32)
+    gv = np.zeros((G,), bool)
+    m = min(len(boxes), G)
+    gb[:m, :W] = boxes[:m, :W]
+    gb[:m, W] = labels[:m]
+    gv[:m] = True
+    return dict(points=out_pts, points_valid=out_val, gt_boxes=gb,
+                gt_valid=gv, frame_id=data_dict["frame_id"])
+
+
 class DatasetTemplate:
+    # the DATA_PROCESSOR entries a dataset of this class applies
+    DATA_PROCESSORS = ("mask_points_and_boxes_outside_range",)
+
     def __init__(self, dataset_cfg=None, class_names=None, training=True,
                  root_path=None, logger=None):
         self.dataset_cfg = dataset_cfg
@@ -55,7 +148,7 @@ class DatasetTemplate:
         self.point_cap = int(dataset_cfg.get("POINT_CAP", 100_000))
         self.max_gt = int(dataset_cfg.get("MAX_GT", 64))
         for proc in dataset_cfg.get("DATA_PROCESSOR", []):
-            if proc.NAME != "mask_points_and_boxes_outside_range":
+            if proc.NAME not in self.DATA_PROCESSORS:
                 raise NotImplementedError(
                     f"data processor {proc.NAME!r} is not ported")
 
@@ -65,6 +158,8 @@ class DatasetTemplate:
 
     def run_data_processor(self, data_dict):
         for proc in self.dataset_cfg.get("DATA_PROCESSOR", []):
+            if proc.NAME != "mask_points_and_boxes_outside_range":
+                continue
             data_dict = mask_points_and_boxes_outside_range(
                 data_dict, self.point_cloud_range,
                 proc.get("REMOVE_OUTSIDE_BOXES", True), self.training)

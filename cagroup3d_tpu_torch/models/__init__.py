@@ -8,8 +8,10 @@ import torch
 from ..config import EasyDict, cfg_from_yaml_file
 from .detectors.cagroup3d import CAGroup3D
 from .detectors.rbgnet import RBGNet
+from .detectors.second_net import SECONDNet
 
-DETECTORS = {"CAGroup3D": CAGroup3D, "RBGNet": RBGNet}
+DETECTORS = {"CAGroup3D": CAGroup3D, "RBGNet": RBGNet,
+             "SECONDNet": SECONDNet}
 
 
 def load_model_config(cfg_path: str):
@@ -26,13 +28,18 @@ def load_config(cfg_path: str) -> EasyDict:
 
 def build_network(model_cfg, num_class: int,
                   generator: Optional[torch.Generator] = None,
-                  device=None) -> Union[CAGroup3D, RBGNet]:
-    """Build the detector named by ``model_cfg.NAME`` (CAGroup3D or
-    RBGNet) with a seeded init (``generator``; seed 0 when None) on
+                  device=None, dataset=None
+                  ) -> Union[CAGroup3D, RBGNet, SECONDNet]:
+    """Build the detector named by ``model_cfg.NAME`` (CAGroup3D, RBGNet
+    or SECONDNet) with a seeded init (``generator``; seed 0 when None) on
     ``device`` (the GPU unless the caller passes another device; there is
-    no CPU fallback)."""
+    no CPU fallback).  ``dataset`` (a dataset, or
+    ``detectors.detector3d_template.dataset_meta`` of its config) gives the
+    outdoor detectors what they read of the data: the point-cloud range,
+    the voxel size and the VFE's points per voxel."""
     if model_cfg.NAME not in DETECTORS:
         raise NotImplementedError(f"{model_cfg.NAME} is not ported yet")
     device = torch.device("cuda") if device is None else device
-    return DETECTORS[model_cfg.NAME](model_cfg, num_class,
-                                     generator).to(device)
+    cls = DETECTORS[model_cfg.NAME]
+    kw = {"dataset": dataset} if getattr(cls, "READS_DATASET", False) else {}
+    return cls(model_cfg, num_class, generator, **kw).to(device)

@@ -1,0 +1,134 @@
+"""Dense BEV backbone: BaseBEVBackbone.
+
+Counterpart of ``cagroup3d_tpu/models/backbones_2d/base_bev_backbone.py``
+(the reference's pcdet/models/backbones_2d/base_bev_backbone.py): per level
+a conv (stride ``LAYER_STRIDES``) and ``LAYER_NUMS`` more convs, each with
+BN (eps 1e-3) and ReLU, then an upsampling deblock per level and a channel
+concat.  The JAX package computes these with XLA's dense convolutions
+outside any Pallas kernel; here they are ``F.conv2d`` /
+``F.conv_transpose2d`` in channels-first layout on the JAX package's HWIO
+weights (``blocks.{i}.{j}.weight``, ``deblocks.{i}.weight``), with its
+padding:
+- ``"SAME"`` pads (total // 2, total - total // 2) with total =
+  max((out - 1) * s + k - in, 0): a stride-2 k3 conv on an even map pads
+  (0, 1), where ``padding=1`` would shift the map by a pixel;
+- ``jax.lax.conv_transpose`` without ``transpose_kernel`` is a conv of the
+  s-dilated input padded by (pad_a, pad_b) with the kernel as given, which
+  is ``F.conv_transpose2d`` with the kernel flipped in space and stored
+  [Cin, Cout, kh, kw], cropped by k - 1 - pad_a at the start.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...core.module import Params, init_bn, register_flat
+
+
+def _same_pads(n: int, k: int, s: int):
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
+    """``lax.conv_general_dilated(x, w, (s, s), "SAME")`` on x [C, H, W]
+    with w HWIO [k, k, Cin, Cout] -> [Cout, H', W']."""
+    k = w.shape[0]
+    (t, b), (l, r) = (_same_pads(n, k, stride) for n in x.shape[-2:])
+    x = F.pad(x[None], (l, r, t, b))
+    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)[0]
+
+
+def _transpose_pads(k: int, s: int):
+    """jax.lax's ``_conv_transpose_padding`` for "SAME"."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else int(math.ceil(pad_len / 2))
+    return pad_a, pad_len - pad_a
+
+
+def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor, stride: int):
+    """``lax.conv_transpose(x, w, (s, s), "SAME")`` (no
+    ``transpose_kernel``) on x [C, H, W] with w HWIO -> [Cout, sH, sW]:
+    the full transposed conv (padding (k - 1, k - 1) of the dilated input)
+    cropped to JAX's padding."""
+    k = w.shape[0]
+    pad_a, pad_b = _transpose_pads(k, stride)
+    extra = max(0, pad_b - (k - 1))
+    if pad_a > k - 1 or extra >= stride:
+        raise ValueError(f"no conv_transpose2d form for k={k}, s={stride}")
+    wt = w.flip(0, 1).permute(2, 3, 0, 1)                 # [Cin, Cout, k, k]
+    y = F.conv_transpose2d(x[None], wt, stride=stride,
+                           output_padding=extra)[0]
+    lo = k - 1 - pad_a
+    H, W = ((n - 1) * stride + 1 + pad_a + pad_b - k + 1
+            for n in x.shape[-2:])
+    return y[:, lo:lo + H, lo:lo + W]
+
+
+def bn2d(P: Params, S: Params, path: str, x: torch.Tensor) -> torch.Tensor:
+    """Eval BN of x [C, H, W] with the running statistics (eps 1e-3),
+    ``core/norm.masked_batch_norm``'s arithmetic."""
+    mean, var = S[path + ".running_mean"], S[path + ".running_var"]
+    w, b = P[path + ".weight"], P[path + ".bias"]
+    y = (x - mean[:, None, None]) * torch.rsqrt(var + 1e-3)[:, None, None]
+    return y * w[:, None, None] + b[:, None, None]
+
+
+class BaseBEVBackbone(nn.Module):
+    def __init__(self, model_cfg, input_channels: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = model_cfg
+        self.layer_nums = [int(x) for x in c.get("LAYER_NUMS", [])]
+        self.strides = [int(x) for x in c.get("LAYER_STRIDES", [])]
+        self.filters = [int(x) for x in c.get("NUM_FILTERS", [])]
+        self.up_strides = [int(x) for x in c.get("UPSAMPLE_STRIDES", [])]
+        self.up_filters = [int(x) for x in c.get("NUM_UPSAMPLE_FILTERS", [])]
+        self.in_ch = int(c.get("IN_CHANNELS", input_channels))
+        self.num_bev_features = sum(self.up_filters) if self.up_filters \
+            else self.filters[-1]
+        P, S = self._init(generator or torch.Generator().manual_seed(0))
+        register_flat(self, P, S)
+
+    def _init(self, gen: torch.Generator):
+        P: Params = {}
+        S: Params = {}
+
+        def conv(path, k, cin, cout):
+            P[path + ".weight"] = torch.randn(k, k, cin, cout, generator=gen) \
+                * math.sqrt(2.0 / (k * k * cout))
+            init_bn(P, S, path + ".bn", cout)
+
+        cin = self.in_ch
+        for li, (n, f) in enumerate(zip(self.layer_nums, self.filters)):
+            for j in range(n + 1):
+                conv(f"blocks.{li}.{j}", 3, cin if j == 0 else f, f)
+            cin = f
+        for li, (us, uf) in enumerate(zip(self.up_strides, self.up_filters)):
+            conv(f"deblocks.{li}", us if us > 1 else 3, self.filters[li], uf)
+        return P, S
+
+    def forward(self, P: Params, S: Params, bev: torch.Tensor,
+                prefix: str = "backbone_2d") -> torch.Tensor:
+        """bev [C, H, W] (eval) -> [sum(up_filters), H', W']."""
+        ups = []
+        x = bev
+        for li, n in enumerate(self.layer_nums):
+            for j in range(n + 1):
+                p = f"{prefix}.blocks.{li}.{j}"
+                x = conv2d_same(x, P[p + ".weight"],
+                                self.strides[li] if j == 0 else 1)
+                x = torch.relu(bn2d(P, S, p + ".bn", x))
+            if li < len(self.up_strides):
+                p, us = f"{prefix}.deblocks.{li}", self.up_strides[li]
+                u = conv_transpose2d_same(x, P[p + ".weight"], us) if us > 1 \
+                    else conv2d_same(x, P[p + ".weight"])
+                ups.append(torch.relu(bn2d(P, S, p + ".bn", u)))
+        if len(ups) > 1:
+            return torch.cat(ups, dim=0)
+        return ups[0] if ups else x

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ library.
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
@@ -7,7 +7,9 @@ hash of its source and of the ``csrc/`` headers it includes, so that an
 edited source or header is rebuilt, and bound with ``ctypes``.  Nothing
 is compiled at import time.  ``ptxas -v`` reports each kernel's
 registers, shared memory and spills; the report is kept beside the
-library (``ptxas_report``).
+library (``ptxas_report``).  A ``csrc/<name>.cpp`` (the KITTI
+evaluator's matcher) is built the same way with the host compiler
+(``build_host`` / ``load_host``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# no -fopenmp: a toolchain may lack libgomp, and the matcher's loop over
+# thresholds runs fast enough in one thread (its pragma is then ignored)
+_HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
@@ -84,6 +90,38 @@ def build(name: str) -> str:
         f.write(res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_host(name: str) -> str:
+    """Compile csrc/<name>.cpp with the host C++ compiler (``CXX``, else
+    c++ or g++) unless its hashed library exists; returns the path."""
+    src = os.path.join(_CSRC, name + ".cpp")
+    with open(src, "rb") as f:
+        h = hashlib.sha256(" ".join(_HOST_FLAGS).encode() + f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no host C++ compiler to build {name}.cpp")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    res = subprocess.run([cxx, *_HOST_FLAGS, "-o", tmp, src],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"{cxx} failed for {name}.cpp:\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The bound library of csrc/<name>.cpp, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_host(name))
+            _libs[name] = lib
+        return lib
 
 
 def ptxas_report(name: str) -> list:

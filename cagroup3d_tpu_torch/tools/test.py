@@ -13,8 +13,10 @@ missing card is an error).  Run from the repository root:
         --set DATA_CONFIG.DATA_PATH ../data/scannet
 
 It reads checkpoints written by either package (pickled flat numpy dicts
-under the same names), prints the per-class AP/AR table and mAP@0.25/0.50,
-and writes ``result.pkl`` under ``output/<cfg group>/<cfg name>/
+under the same names), prints the dataset's evaluation (indoor: the
+per-class AP/AR table and mAP@0.25/0.50; KITTI, e.g. ``--cfg_file
+tools/cfgs/kitti_models/second.yaml``: the official R11/R40 table), and
+writes ``result.pkl`` under ``output/<cfg group>/<cfg name>/
 <extra_tag>/eval/``.  On N cards:
 
     torchrun --standalone --nproc_per_node N -m \\
@@ -115,7 +117,8 @@ def main(args, cfg):
         dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
         batch_size=args.batch_size or 1, logger=logger, training=False,
         rank=rank, world_size=world)
-    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=device)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
+                          dataset=dataset)
     model.eval()
 
     results = {}

@@ -1,6 +1,7 @@
 """Eval harness: the model's eval forward over the val loader, predictions
 unpadded into the dataset's prediction dicts, recall counters, and the
-dataset's indoor mAP evaluation.
+dataset's evaluation (indoor mAP, or KITTI's official protocol with its
+result table logged).
 
 Counterpart of ``cagroup3d_tpu/training/eval_utils.py`` (the reference's
 tools/eval_utils/eval_utils.py).  The loader yields padded numpy batches;
@@ -116,7 +117,10 @@ def eval_one_epoch(model, dataset, loader, epoch_id, logger,
         result_dir.mkdir(parents=True, exist_ok=True)
         with open(result_dir / "result.pkl", "wb") as f:
             pickle.dump(det_annos, f)
-    ret_dict, _ = dataset.evaluation(det_annos, class_names)
+    ret_dict, result_str = dataset.evaluation(det_annos, class_names)
+    if isinstance(result_str, str):
+        for line in result_str.strip().splitlines():
+            logger.info(line)
     for k, v in sorted(ret_dict.items()):
         logger.info(f"{k}: {float(v):.4f}")
     return ret_dict

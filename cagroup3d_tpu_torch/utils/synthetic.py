@@ -8,10 +8,13 @@ JAX package's copy, so both packages see the same scenes for a seed.  With
 ``yaw`` (SUN RGB-D-style scenes, an option of this copy only) each object
 also draws a heading in [0, 2 pi) after everything else, and its points
 turn with it about the box centre.  ``write_indoor_tree`` writes such
-scenes as an mmdet3d-format ScanNet or SUN RGB-D dataset tree.
+scenes as an mmdet3d-format ScanNet or SUN RGB-D dataset tree, and
+``write_kitti_tree`` raw KITTI lidar frames (``kitti_frame``) with their
+infos.
 """
 from __future__ import annotations
 
+import logging
 import pickle
 from pathlib import Path
 from typing import Dict
@@ -247,3 +250,129 @@ def write_indoor_tree(root, dataset: str, class_names, n_scenes: int,
         with open(root / f"{prefix}_infos_{split}.pkl", "wb") as f:
             pickle.dump(infos, f)
     return counts
+
+
+# A real KITTI calibration (object split, frame 000000's camera rig).
+KITTI_CALIB = """P0: 707.0493 0 604.0814 0 0 707.0493 180.5066 0 0 0 1 0
+P1: 707.0493 0 604.0814 -379.7842 0 707.0493 180.5066 0 0 0 1 0
+P2: 707.0493 0 604.0814 45.75831 0 707.0493 180.5066 -0.3454157 0 0 1 0.004981016
+P3: 707.0493 0 604.0814 -334.1081 0 707.0493 180.5066 2.33966 0 0 1 0.003201153
+R0_rect: 0.9999128 0.01009263 -0.008511932 -0.01012729 0.9999406 -0.004037671 0.008470675 0.004123522 0.9999556
+Tr_velo_to_cam: 0.006927964 -0.9999722 -0.002757829 -0.02457729 -0.001162982 0.002749836 -0.9999955 -0.06127237 0.9999753 0.006931141 0.003111131 -0.3321029
+Tr_imu_to_velo: 0.9999976 0.0007553071 -0.002035826 -0.8086759 -0.0007854027 0.9998898 -0.01482298 0.3195559 0.002024406 0.01482454 0.9998881 -0.7997231
+"""
+KITTI_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
+               "Cyclist": (1.76, 0.6, 1.73)}
+KITTI_IMAGE = (375, 1242)
+GROUND_Z = -1.73          # the lidar sits 1.73 m above the road
+
+
+def kitti_frame(rng: np.random.RandomState, n_points: int = 120_000,
+                n_objects: int = 18):
+    """One synthetic 360-degree lidar frame: ``n_points`` points (x, y, z,
+    intensity) f32 on a ground plane (denser near the sensor), two walls
+    along the road and ``n_objects`` labelled objects (Car, Pedestrian and
+    Cyclist in turn) 6-27 m ahead inside the camera's view, apart from each
+    other, each a box of 200-600 points.  Returns (points [n_points, 4],
+    names [n], boxes [n, 7] lidar (x, y, z centre, l, w, h, heading))."""
+    names = [list(KITTI_SIZES)[i % 3] for i in range(n_objects)]
+    boxes, radii = [], []
+    for name in names:
+        l, w, h = KITTI_SIZES[name]
+        r = np.hypot(l, w) / 2
+        for _ in range(1000):
+            x = rng.uniform(6.0, 27.0)
+            y = rng.uniform(-0.7, 0.7) * x
+            if all(np.hypot(x - b[0], y - b[1]) > r + q + 0.5
+                   for b, q in zip(boxes, radii)):
+                break
+        else:
+            raise ValueError(f"no room for {n_objects} objects")
+        boxes.append(np.array([x, y, GROUND_Z + h / 2, l, w, h,
+                               rng.uniform(-np.pi, np.pi)], np.float32))
+        radii.append(r)
+    boxes = np.stack(boxes)
+    n_obj_pts = [int(rng.randint(200, 600)) for _ in names]
+    n_wall = n_points // 5
+    n_ground = n_points - n_wall - sum(n_obj_pts)
+    if n_ground <= 0:
+        raise ValueError(f"{n_points} points do not cover the objects")
+    r = 3.0 + 77.0 * rng.rand(n_ground) ** 2
+    a = rng.uniform(-np.pi, np.pi, n_ground)
+    ground = np.stack([r * np.cos(a), r * np.sin(a),
+                       GROUND_Z + rng.randn(n_ground) * 0.02], -1)
+    side = np.where(rng.rand(n_wall) < 0.5, -1.0, 1.0)
+    wall = np.stack([rng.uniform(-70, 70, n_wall),
+                     side * (28.0 + rng.rand(n_wall) * 0.3),
+                     rng.uniform(GROUND_Z, 2.5, n_wall)], -1)
+    objs = []
+    for b, n in zip(boxes, n_obj_pts):
+        u = (rng.rand(n, 3) - 0.5) * 0.95 * b[3:6]
+        c, s = np.cos(b[6]), np.sin(b[6])
+        objs.append(np.stack([u[:, 0] * c - u[:, 1] * s + b[0],
+                              u[:, 0] * s + u[:, 1] * c + b[1],
+                              u[:, 2] + b[2]], -1))
+    xyz = np.concatenate([ground, wall] + objs)
+    pts = np.concatenate([xyz, rng.rand(len(xyz), 1)], -1).astype(np.float32)
+    return pts[rng.permutation(len(pts))], np.array(names), boxes
+
+
+def write_kitti_tree(root, n_frames: int, n_points: int = 120_000,
+                     seed: int = 0, n_objects: int = 18,
+                     n_train: int = 1) -> Dict:
+    """Write a raw KITTI object tree of ``kitti_frame`` frames under
+    ``root`` (``training/velodyne/*.bin``, ``calib/*.txt`` with a real
+    KITTI calibration, ``label_2/*.txt`` in the camera frame, no images:
+    the infos take the 375 x 1242 fallback; ``ImageSets/val.txt`` all the
+    frames, ``train.txt`` the first ``n_train``), then run
+    ``create_kitti_infos`` over it (the infos and the train gt database).
+
+    Labels carry truncation 0, occlusion 0 and the 2-D box of the
+    projected 3-D box, so every object is 'easy' (taller than 40 px) and
+    counts in all three difficulties.  The official AP reaches 100 only
+    with at least 41 GT boxes of a class (41 recall samples), so a tree
+    for an AP check needs n_frames * n_objects / 3 >= 41.  Returns
+    {frame_id: number of points inside the point-cloud range [0, -40, -3,
+    70.4, 40, 1)}."""
+    from ..datasets.kitti_infos import create_kitti_infos, parse_calib_file
+    from .box_utils import boxes_camera_to_imageboxes, boxes_lidar_to_camera
+    root = Path(root)
+    sub = root / "training"
+    for d in ("velodyne", "calib", "label_2"):
+        (sub / d).mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(exist_ok=True)
+    rng = np.random.RandomState(seed)
+    ids = [f"{i:06d}" for i in range(n_frames)]
+    (sub / "calib" / "tmp.txt").write_text(KITTI_CALIB)
+    calib = parse_calib_file(sub / "calib" / "tmp.txt")
+    (sub / "calib" / "tmp.txt").unlink()
+    R0, V2C = calib["R0_rect"][:3, :3], calib["Tr_velo_to_cam"][:3]
+    lo = np.array([0, -40, -3], np.float32)
+    hi = np.array([70.4, 40, 1], np.float32)
+    in_range = {}
+    for idx in ids:
+        pts, names, boxes = kitti_frame(rng, n_points, n_objects)
+        pts.tofile(sub / "velodyne" / f"{idx}.bin")
+        (sub / "calib" / f"{idx}.txt").write_text(KITTI_CALIB)
+        cam = boxes_lidar_to_camera(boxes, R0, V2C)
+        bbox = boxes_camera_to_imageboxes(cam, calib["P2"], KITTI_IMAGE)
+        alpha = -np.arctan2(-boxes[:, 1], boxes[:, 0]) + cam[:, 6]
+        lines = []
+        for n, c, bb, al in zip(names, cam, bbox, alpha):
+            # KITTI order: h w l, location (bottom centre), rotation_y
+            lines.append(" ".join([n, "0.00", "0", f"{al:.6f}"] +
+                                  [f"{v:.4f}" for v in bb] +
+                                  [f"{c[4]:.6f}", f"{c[5]:.6f}",
+                                   f"{c[3]:.6f}"] +
+                                  [f"{v:.6f}" for v in c[:3]] +
+                                  [f"{c[6]:.6f}"]))
+        (sub / "label_2" / f"{idx}.txt").write_text("\n".join(lines) + "\n")
+        in_range[idx] = int(np.all((pts[:, :3] >= lo) & (pts[:, :3] < hi),
+                                   axis=1).sum())
+    (root / "ImageSets" / "val.txt").write_text("\n".join(ids) + "\n")
+    (root / "ImageSets" / "train.txt").write_text(
+        "\n".join(ids[:n_train]) + "\n")
+    (root / "ImageSets" / "test.txt").write_text("")
+    create_kitti_infos(root, class_names=tuple(KITTI_SIZES),
+                       logger=logging.getLogger(__name__))
+    return in_range

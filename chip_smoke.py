@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch port: CAGroup3D eval and training on one NVIDIA
-card, ScanNet and then SUN RGB-D (the yaw path), then RBGNet on both.
+card, ScanNet and then SUN RGB-D (the yaw path), then RBGNet on both, then
+SECOND's KITTI eval.
 
 Run from the repository root on a machine with a CUDA GPU:
 
@@ -90,9 +91,10 @@ after it.
    its map scratch).
 9. train   -- full-width CAGroup3D trained with the YAML's OPTIMIZATION
    (AdamW, lr 1e-3, wd 1e-4, clip 10) at its BATCH_SIZE_PER_GPU synthetic
-   100k-point scenes per step (ScanNet 4, SUN RGB-D 8): one warm-up and
-   TRAIN_STEPS (ScanNet) or TRAIN_STEPS_YAW timed steps with the launch
-   counters reset before them; loss and tb finite (the yaw path's
+   100k-point scenes per step (ScanNet 4, SUN RGB-D 8): TRAIN_STEPS
+   (ScanNet) or TRAIN_STEPS_YAW timed steps with the launch counters
+   reset before them, the first timed (no warm-up step: the model ran
+   phase 8's step, and phase 7c's B-scene steps ran in this process); loss and tb finite (the yaw path's
    ``rcnn_loss_iou`` among them), every backbone, head and RoI
    parameter's gradient finite and each module's non-zero, parameters and
    BN running stats changed, K1 and K3 launched; peak memory.
@@ -123,13 +125,13 @@ rbgnet-requests -- the YAML's seeded model through ``build_network``; a
    ms per scene and one synchronized stage split (backbone and its FPS,
    vote module with aggregation and predictions, ray grouping and its
    FPS, boxes and NMS; ``rbg_stage_split``).
-rbgnet-test-cli -- phase 7b's checks on RBGNet: the ``test`` CLI over an
-   8-scene 100k-point tree with a checkpoint of that model; result.pkl
+rbgnet-test-cli -- phase 7b's checks on RBGNet: the ``test`` CLI over a
+   4-scene 100k-point tree with a checkpoint of that model; result.pkl
    equals the forward's outputs unpadded, the GT-as-predictions oracle
    scores 1.0, the model's mAP finite in [0, 1].
 rbgnet-train -- phase 9 on RBGNet: the YAML's OPTIMIZATION (AdamW, lr
-   0.006, wd 0.01, clip 10) at B = 8, one warm-up and RBG_TRAIN_STEPS timed
-   steps; loss, tb and every gradient finite, each module's non-zero,
+   0.006, wd 0.01, clip 10) at B = 8, RBG_TRAIN_STEPS timed steps (no
+   warm-up, as in 9); loss, tb and every gradient finite, each module's non-zero,
    parameters and BN running stats changed; ms per step, peak GB.
 rbgnet-train-cli -- the ``train`` CLI for one epoch over an 8-scene tree
    with REPEAT.train 1 (one step at B = 8): losses finite, the
@@ -143,6 +145,34 @@ rbgnet-learn -- the tiny configuration on two fixed B = 2 batches, 60
    least nine tenths of the JAX package's (``JAX_LEARN_DROP_RBG``,
    ``JAX_LEARN_DROP_RBG_YAW`` from ``tests/learn_margin.py --rbgnet
    [--yaw]``).
+
+Then SECOND on KITTI (tools/cfgs/kitti_models/second.yaml; lines tagged
+``"config": "kitti_second"``; its lattice packs keys at (11, 11, 8), set
+only around the model's own forward):
+second-requests -- the YAML's full-width SECOND (seeded, built with the
+   KITTI dataset config, class prior lifted so the NMS sees its 1024
+   candidates); a warm-up frame records every K1 call (11: 8 submanifold,
+   3 strided at coords) and the bits it launched at, each replayed
+   against its plain version with phase 4's bars (``k1`` lines, forms g
+   and h, with time, bound and ``library_ms``); then three synthetic
+   120k-point frames (``kitti_frame``) at batch 1: ms/scene, peak GB, K1's
+   launches a scene, finite outputs, two calls the same bits, and the
+   NMS's row-blocked overlap matrix (``nms_blocks``) the same bits at two
+   block sizes, at 1024 and 4096 boxes.
+second-reference -- the tiny SECOND (``TINY_SECOND``, the widths of
+   tests/test_outdoor.py::second_cfg, at KITTI's grid) card against CPU
+   stage by stage on the CPU's inputs: voxel and level lattices exact,
+   features within 2e-2, the BEV map exact, the 2-D backbone and head
+   within 1e-3, the NMS keep mask exact (``phase_second_reference``).
+second-test-cli -- an 8-frame raw KITTI tree (``write_kitti_tree``, 18
+   objects a frame) with its infos, a checkpoint of the full-width model
+   and the ``test`` CLI in-process at batch 1: result.pkl equals the
+   recorded ``forward_eval`` outputs bitwise, the batches hold the
+   writer's in-range points, the GT as predictions scores the official
+   3D AP R40 of 100 on every class and difficulty (0 moved 2 m), K1 11
+   launches a frame, two calls the same bits; ms/scene and the loader's
+   share (``phase_second_test_cli``).
+bits -- a tiny CAGroup3D built and run afterwards launches K1 at 10/10/10.
 
 Then the multi-card path (``--dist``, one process per card), on this one
 card (``phase_dist``):
@@ -161,9 +191,12 @@ dist -- two ranks spawned over gloo (NCCL takes one rank a card), each
 
 The line before the last is {"kernels": [...]}: per kernel the launches of
 both CAGroup3D paths' main-path runs summed (and of both paths' CLI runs,
-``train_cli_launches``; of every RBGNet run, ``rbgnet_launches``; of the
-dist phase's ranks, ``dist_launches``), the ScanNet path's times and each
-path's own under ``paths``.  The last is {"ok": true, "device": {...}}.
+``train_cli_launches``; of every RBGNet run, ``rbgnet_launches``; of
+SECOND's requests and CLI, ``second_launches`` and
+``second_test_cli_launches``; of the dist phase's ranks,
+``dist_launches``), the ScanNet path's times and each path's own under
+``paths`` (``kitti_second``: K1 over one SECOND frame's calls).  The
+last is {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -254,11 +287,13 @@ def fail(phase, msg):
     raise SystemExit(1)
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, warm=True):
     """CUDA-event ms of one call of ``fn``, the mean of ``reps`` calls
-    after one warm-up call."""
+    after one warm-up call (none with ``warm=False``, where the caller has
+    just made one)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -620,12 +655,13 @@ def k1_args(args, kw):
     return a
 
 
-def replay(calls, forms, run, plain, info, reps_plain, library):
+def replay(calls, forms, run, plain, info, library):
     """Replay recorded calls with the kernel and the plain version on the
     same inputs and gather per-form stats: errors (``rel_err``,
     ``row_err``), zero rows, sorted sources, whether a second kernel call
-    gives the same bits, CUDA-event ms of both, the bound ms and the
-    library yardstick's ms (``library(args, kw)``).  ``info(args, kw)`` ->
+    gives the same bits, CUDA-event ms of both (the plain version's one
+    call right after its reference call), the bound ms and the library
+    yardstick's ms (``library(args, kw)``).  ``info(args, kw)`` ->
     (zero-row mask or None, source tables that must be key-sorted, (bytes,
     FLOPs), shape dict with the launch's plan)."""
     import torch
@@ -649,7 +685,8 @@ def replay(calls, forms, run, plain, info, reps_plain, library):
                 f["zero_ok"] &= bool((got[~rows] == 0).all())
             f["sorted"] &= all(sources_sorted_(*t) for t in tables)
             f["ms"] += time_ms(lambda: run(*args, **kw), 5)
-            f["plain_ms"] += time_ms(lambda: plain(*args, **kw), reps_plain)
+            f["plain_ms"] += time_ms(lambda: plain(*args, **kw), 1,
+                                     warm=False)
             f["library_ms"] += library(*args, **kw)
             f["bytes"] += n_bytes
             f["flops"] += flops
@@ -775,17 +812,17 @@ def phase_k3(model, dev, needed, path):
     model.zero_grad(set_to_none=True)
     fwd_stats = replay(fwd_calls, [k1_form(i, fwd_calls)
                                    for i in range(len(fwd_calls))],
-                       sparse_conv, sparse_conv_plain, k1_info, 2,
+                       sparse_conv, sparse_conv_plain, k1_info,
                        library_conv_ms)
     dfe_stats = replay(dfe_calls, bwd_forms(
         dfe_calls, lambda a: (a[4].shape[0], a[3], len(a) > 5 and
                               a[5] is not None)),
-        sparse_conv_dfeats, sparse_conv_dfeats_plain, dfeats_info, 2,
+        sparse_conv_dfeats, sparse_conv_dfeats_plain, dfeats_info,
         dfeats_library_ms)
     dw_stats = replay(dw_calls, bwd_forms(
         dw_calls, lambda a: (a[2].shape[0], a[4], len(a) > 6 and
                              a[6] is not None)),
-        sparse_conv_dw, sparse_conv_dw_plain, dw_info, 2, library_dw_ms)
+        sparse_conv_dw, sparse_conv_dw_plain, dw_info, library_dw_ms)
     for kind, st_ in (("k1_train_forward", fwd_stats),
                       ("k1_feature_backward", dfe_stats),
                       ("k3_weight_backward", dw_stats)):
@@ -821,14 +858,13 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
     step = make_train_step(model, opt, torch.Generator().manual_seed(1),
                            device=dev)
     batches = [synthetic_train_batch(20 + i, dev, B, n_points, **path.scene)
-               for i in range(path.train_steps + 1)]
+               for i in range(path.train_steps)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    step(batches[0], 0.0)                                      # warm-up
     torch.cuda.synchronize()
     launch_counts(reset=True)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, tbs = [], [], []
-    for b in batches[1:]:
+    for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, tb = step(b, 0.0)
@@ -967,8 +1003,9 @@ class Path:
     """One configuration's main path: the YAML, its synthetic scenes
     (class count, headed boxes for the yaw path), the timed training steps
     and the JAX package's learn drop.  CAGroup3D's paths launch the
-    kernels (``kernels``)."""
+    kernels (``kernels``).  Phase 7b's tree has ``cli_scenes`` scenes."""
     kernels = True
+    cli_scenes = CLI_SCENES
 
     def __init__(self, name, train_steps, jax_learn_drop, cfg_path=None,
                  dataset=None):
@@ -1041,7 +1078,7 @@ def phase_eval_kernels(model, dev, path):
     # 4. K1 against its plain version at every recorded call
     forms = replay(k1_calls, [k1_form(i, k1_calls)
                               for i in range(len(k1_calls))],
-                   sparse_conv, sparse_conv_plain, k1_info, 2,
+                   sparse_conv, sparse_conv_plain, k1_info,
                    library_conv_ms)
     for name, f in sorted(forms.items()):
         emit({"phase": "k1", **tag, "form": name, **f,
@@ -1296,7 +1333,7 @@ class Recording:
 
 def phase_test_cli(dev, gpu, power, path):
     """Phase 7b: the ``test`` CLI (``cagroup3d_tpu_torch.tools.test``) in
-    this process on a synthetic tree of CLI_SCENES 100k-point scenes
+    this process on a synthetic tree of ``path.cli_scenes`` 100k-point scenes
     (``write_indoor_tree``: ScanNet points in a raw frame with a z rotation
     and translation as each scene's axis-align matrix, SUN RGB-D headed
     boxes), evaluating a checkpoint of the YAML's full-width model as
@@ -1350,7 +1387,7 @@ def phase_test_cli(dev, gpu, power, path):
     cwd, t_phase = os.getcwd(), time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_test_cli_") as tmp:
         tree = os.path.join(tmp, path.name)
-        counts = write_indoor_tree(tree, path.dataset, names, CLI_SCENES,
+        counts = write_indoor_tree(tree, path.dataset, names, path.cli_scenes,
                                    n_points=N_POINTS, seed=0)
         ckpt = os.path.join(tmp, "checkpoint_epoch_10.pkl")
         save_checkpoint(ckpt, path.eval_model(dev))
@@ -1375,7 +1412,7 @@ def phase_test_cli(dev, gpu, power, path):
             det = pickle.load(f)
     dataset, loader = loaders[0]
     batches, bad = loader.batches, []
-    if not len(det) == len(calls) == len(batches) == CLI_SCENES:
+    if not len(det) == len(calls) == len(batches) == path.cli_scenes:
         bad.append(f"{len(det)} scenes in result.pkl, {len(calls)} calls, "
                    f"{len(batches)} batches")
     on_card = all(next(m.parameters()).is_cuda and inp["points"].is_cuda and
@@ -1448,7 +1485,7 @@ def phase_test_cli(dev, gpu, power, path):
         bad.append("two direct forward_eval calls on one batch give "
                    "different bits (profile_port.py's bits phase names the "
                    "first op apart)")
-    ms = harness_s[0] * 1e3 / CLI_SCENES
+    ms = harness_s[0] * 1e3 / path.cli_scenes
     phase = "test-cli" if path.kernels else "rbgnet-test-cli"
     emit({"phase": phase, "config": path.name, "ok": not bad,
           "gpu": gpu, "power_limit": power, "scenes": len(det),
@@ -1683,8 +1720,10 @@ def run_path(dev, gpu, power, path):
 
 class RbgPath(Path):
     """One RBGNet configuration (tools/cfgs/<dataset>_models/RBGNet.yaml):
-    its main path launches none of the kernels."""
+    its main path launches none of the kernels.  Its ``test`` CLI phase
+    runs half phase 7b's scenes (FPS makes its scenes the slowest)."""
     kernels = False
+    cli_scenes = CLI_SCENES // 2
 
     def __init__(self, dataset, jax_learn_drop):
         super().__init__(f"rbgnet_{dataset}", RBG_TRAIN_STEPS,
@@ -2080,6 +2119,515 @@ def run_rbg_path(dev, gpu, power, path):
     phase_rbg_reference(dev, path)
     phase_rbg_learn(dev, path)
     return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+# ---------------------------------------------------------------------------
+# SECOND on KITTI (MeanVFE, VoxelBackBone8x, HeightCompression,
+# BaseBEVBackbone, AnchorHeadSingle; key bits (11, 11, 8))
+# ---------------------------------------------------------------------------
+
+KITTI_CFG = os.path.join(HERE, "tools", "cfgs", "kitti_models", "second.yaml")
+KITTI_TAG = {"config": "kitti_second"}
+KITTI_POINTS, KITTI_CLI_FRAMES = 120_000, 8
+SECOND_K1_PER_SCENE = 11      # 8 submanifold and 3 strided convs
+# tests/test_outdoor.py::second_cfg's widths (the tiny SECOND), on the
+# YAML's model and the dataset's range and voxel size
+TINY_SECOND = dict(INPUT_CAP=4096,
+                   CAPS={1: 4096, 2: 2048, 4: 1024, 8: 512},
+                   LAYER_NUMS=[2, 2], NUM_FILTERS=[32, 64],
+                   NUM_UPSAMPLE_FILTERS=[32, 32],
+                   NMS_CONFIG=dict(SCORE_THRESH=0.1, NMS_THRESH=0.01,
+                                   NMS_PRE_MAXSIZE=512), MAX_OUT=64)
+
+
+def kitti_config():
+    from cagroup3d_tpu_torch.models import load_config
+    return load_config(KITTI_CFG)
+
+
+def second_model(cfg, dev, seed, tiny=False, lift=True):
+    """A seeded SECOND of the KITTI YAML through ``build_network`` with the
+    dataset config (``dataset_meta``); ``tiny``: TINY_SECOND's widths;
+    ``lift``: the class prior lifted (bias 0, scores about 0.5), so that
+    the untrained model's candidates pass the score threshold and NMS
+    sees its full candidate set."""
+    import torch
+    from cagroup3d_tpu_torch.models import build_network
+    from cagroup3d_tpu_torch.models.detectors.detector3d_template import \
+        dataset_meta
+    mc = copy.deepcopy(cfg.MODEL)
+    if tiny:
+        t = TINY_SECOND
+        mc.INPUT_CAP = t["INPUT_CAP"]
+        mc.BACKBONE_3D.CAPS = t["CAPS"]
+        mc.BACKBONE_2D.update({k: t[k] for k in (
+            "LAYER_NUMS", "NUM_FILTERS", "NUM_UPSAMPLE_FILTERS")})
+        mc.DENSE_HEAD.update(NMS_CONFIG=t["NMS_CONFIG"],
+                             MAX_OUT=t["MAX_OUT"])
+    m = build_network(mc, len(cfg.CLASS_NAMES),
+                      generator=torch.Generator().manual_seed(seed),
+                      device=dev, dataset=dataset_meta(cfg.DATA_CONFIG,
+                                                       cfg.CLASS_NAMES))
+    if lift:
+        with torch.no_grad():
+            m.dense_head.get_parameter("conv_cls.bias").zero_()
+    return m
+
+
+def kitti_request(cfg, seed, dev, n_points=KITTI_POINTS):
+    """One synthetic 120k-point lidar frame (``kitti_frame``) prepared as
+    the KITTI dataset prepares a frame (range mask, POINT_CAP padding) at
+    batch 1 on ``dev``."""
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.datasets.dataset import prepare_outdoor_sample
+    from cagroup3d_tpu_torch.utils.synthetic import kitti_frame
+    pts, names, boxes = kitti_frame(np.random.RandomState(seed), n_points)
+    d = prepare_outdoor_sample(
+        dict(points=pts, gt_boxes=boxes, gt_names=names,
+             frame_id=str(seed)), np.random.RandomState(seed),
+        augmentor=None, shuffle_points=False,
+        class_names=list(cfg.CLASS_NAMES),
+        pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+        point_cap=int(cfg.DATA_CONFIG.get("POINT_CAP", 65536)), max_gt=64)
+    return {k: torch.from_numpy(d[k][None]).to(dev)
+            for k in ("points", "points_valid")}
+
+
+def second_k1_form(args, kw):
+    return "h_second_down_k3" if k1_args(args, kw)[5] is not None \
+        else "g_second_subm_k3"
+
+
+def phase_second_requests(dev, gpu, power, cfg):
+    """second-requests: the YAML's full-width SECOND (seeded, class prior
+    lifted), built with the KITTI dataset config.  A warm-up frame records
+    every K1 call and the key bits each launched at; each call is then
+    replayed against its plain version at the model's bits with phase 4's
+    bars and printed per form with its time, bound and ``library_ms``.
+    Then, launch counters reset, three 120k-point frames at batch 1:
+    ms/scene, the peak GB and K1's launches (11 a scene); outputs finite
+    with the expected shapes; two direct ``forward_eval`` calls the same
+    bits; and the NMS's row-blocked overlap matrix at N = 4096 (the same
+    bits at two block sizes; 1024 rows against the whole matrix), its
+    time and peak GB.  Returns (K1 form stats, K1 totals, launches)."""
+    import torch
+    import cagroup3d_tpu_torch.models.backbones_3d.spconv_backbone as sb
+    from cagroup3d_tpu_torch.core import hashing
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.core.module import Ctx
+    from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
+                                                     sparse_conv_plain)
+    t_phase, bad = time.time(), []
+    model = second_model(cfg, dev, seed=0)
+    reqs = [kitti_request(cfg, seed, dev) for seed in (10, 0, 1, 2)]
+    calls, bits = [], []
+
+    def rec(*args, **kw):
+        bits.append(hashing.key_bits())
+        calls.append((args, kw))
+        return sparse_conv(*args, **kw)
+
+    core_conv.sparse_conv = sb.sparse_conv = rec
+    try:
+        t0 = time.time()
+        warm = model.forward_eval(reqs[0])
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+    finally:
+        core_conv.sparse_conv = sb.sparse_conv = sparse_conv
+    with hashing.key_bits_scope(model.key_bits):
+        forms = replay(calls, [second_k1_form(*c) for c in calls],
+                       sparse_conv, sparse_conv_plain, k1_info,
+                       library_conv_ms)
+        voxels = [int(model.vfe(Ctx(), r["points"][0], r["points_valid"][0],
+                                model.voxel_size, model.point_cloud_range,
+                                model.input_cap).valid.sum())
+                  for r in reqs[1:]]
+    for name, f in sorted(forms.items()):
+        emit({"phase": "k1", **KITTI_TAG, "form": name, "gpu": gpu,
+              "power_limit": power, **f})
+    if not all(f["ok"] for f in forms.values()) or len(forms) != 2:
+        bad.append(f"K1 disagrees with its plain version at SECOND's calls "
+                   f"or a form is missing: {sorted(forms)}")
+    if len(calls) != SECOND_K1_PER_SCENE or \
+            set(bits) != {tuple(model.key_bits)} or \
+            tuple(model.key_bits) != (11, 11, 8):
+        bad.append(f"{len(calls)} K1 calls a scene at bits {set(bits)}")
+
+    launch_counts(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    lat_ms, outs = [], []
+    for r in reqs[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(model.forward_eval(r))
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    M = model.dense_head.max_out
+    for out in outs:
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        if shapes != {"pred_boxes": (1, M, 7), "pred_scores": (1, M),
+                      "pred_labels": (1, M), "pred_valid": (1, M),
+                      "overflow": (1,)}:
+            bad.append(f"bad output shapes {shapes}")
+        if not all(bool(torch.isfinite(v.float()).all())
+                   for v in out.values()):
+            bad.append("non-finite outputs")
+    if launches["sparse_conv"] != 3 * SECOND_K1_PER_SCENE or \
+            launches["segsum"] or launches["sparse_conv_dw"]:
+        bad.append(f"launches {launches}, expected K1 "
+                   f"{SECOND_K1_PER_SCENE} a scene and no other kernel")
+    again = model.forward_eval(reqs[1])
+    two_same = all(torch.equal(outs[0][k], again[k]) for k in again)
+    if not two_same:
+        bad.append("two forward_eval calls on one frame differ")
+    if hashing.key_bits() != (10, 10, 10):
+        bad.append(f"the global key bits are {hashing.key_bits()} after "
+                   f"SECOND's forward")
+
+    nms_stats = nms_blocks(dev)
+    bad += [f"the overlap matrix of {n} boxes changes with its row blocks"
+            for n, st_ in nms_stats.items() if not st_["blocks_same_bits"]]
+    emit({"phase": "second-requests", **KITTI_TAG, "ok": not bad,
+          "gpu": gpu, "power_limit": power, "scenes": 3,
+          "points_per_frame": KITTI_POINTS,
+          "points_in_range": [int(r["points_valid"].sum())
+                              for r in reqs[1:]],
+          "voxels": voxels, "key_bits": list(model.key_bits),
+          "warm_up_seconds": warm_s, "ms_per_scene": lat_ms,
+          "median_ms": sorted(lat_ms)[1], "peak_memory_gb": peak_gb,
+          "launches": launches,
+          "k1_launches_per_scene": launches["sparse_conv"] / 3,
+          "detections": [int(o["pred_valid"].sum()) for o in outs],
+          "overflow": [int(o["overflow"].sum()) for o in outs],
+          "two_calls_same_bits": two_same, "nms": nms_stats,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("second-requests", "; ".join(bad))
+    del model
+    torch.cuda.empty_cache()
+    return forms, total(forms), launches
+
+
+def nms_blocks(dev, n=4096):
+    """Rotated greedy NMS on ``n`` random boxes and on the first 1024 (a
+    head's NMS_CONFIG may ask for 4096 candidates; the YAML's head takes
+    the JAX package's default 1024): the row-blocked overlap matrix at two
+    block sizes (at 1024 one of them the whole matrix) the same bits; the
+    NMS's ms and peak GB."""
+    import torch
+    from cagroup3d_tpu_torch.core import nms as nms_mod
+    g = torch.Generator().manual_seed(0)
+    boxes = torch.cat([torch.rand(n, 2, generator=g) * 60,
+                       torch.rand(n, 1, generator=g),
+                       torch.rand(n, 3, generator=g) * 3 + 0.5,
+                       torch.rand(n, 1, generator=g) * 6 - 3], 1).to(dev)
+    scores = torch.rand(n, generator=g).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    for m in sorted({min(1024, n), n}):
+        b = boxes[:m]
+        mats = [nms_mod.overlap_matrix(b, 0.01, True, block_pairs=bp)
+                for bp in (m * m, m * 128)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        keep = nms_mod.greedy_nms(b, scores[:m], valid[:m], 0.01,
+                                  rotated=True)
+        torch.cuda.synchronize()
+        out[m] = dict(blocks_same_bits=bool(torch.equal(*mats)),
+                      ms=(time.perf_counter() - t0) * 1e3,
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      kept=int(keep.sum()))
+    return out
+
+
+def phase_second_reference(dev, cfg):
+    """second-reference: the tiny SECOND (TINY_SECOND's widths at KITTI's
+    range and voxel size, so at (11, 11, 8) bits) on the card against the
+    same model on the CPU, stage by stage on the CPU's inputs: the VFE's
+    voxels and every backbone level's lattice exact, their features within
+    2e-2 of the largest magnitude (K1's bars); the BEV map exact, the 2-D
+    backbone and the head outputs within 1e-3 relative; on the CPU's head
+    outputs with seeded class logits the decoded boxes within 1e-2 and
+    scores within 1e-3, and the NMS keep mask (valid), labels exact."""
+    import torch
+    from cagroup3d_tpu_torch.core import hashing
+    from cagroup3d_tpu_torch.core.module import Ctx, flat_state
+    from cagroup3d_tpu_torch.core.sparse import SparseTensor
+    cpu = second_model(cfg, "cpu", seed=1, tiny=True)
+    gpu_m = copy.deepcopy(cpu).to(dev)
+    req = kitti_request(cfg, 5, "cpu")
+    st_ok, stages = True, {}
+
+    def to(st, d):
+        return SparseTensor(st.coords.to(d), st.feats.to(d), st.valid.to(d),
+                            st.stride)
+
+    def same_st(a, b):
+        return bool(torch.equal(a.coords.cpu(), b.coords) and
+                    torch.equal(a.valid.cpu(), b.valid))
+
+    with torch.no_grad(), hashing.key_bits_scope(cpu.key_bits):
+        Pc, Sc = flat_state(cpu)
+        Pg, Sg = flat_state(gpu_m)
+        args = (cpu.voxel_size, cpu.point_cloud_range, cpu.input_cap)
+        vc = cpu.vfe(Ctx(), req["points"][0], req["points_valid"][0], *args)
+        vg = gpu_m.vfe(Ctx(), req["points"][0].to(dev),
+                       req["points_valid"][0].to(dev), *args)
+        stages["vfe"] = dict(lattice_exact=same_st(vg, vc),
+                             voxels=int(vc.valid.sum()),
+                             feats_rel=rel_err(vg.feats.cpu(), vc.feats))
+        bc = cpu.backbone_3d(Pc, Sc, Ctx(), vc)
+        bg = gpu_m.backbone_3d(Pg, Sg, Ctx(), to(vc, dev))
+        for k, c in list(bc["multi_scale_3d_features"].items()) + [
+                ("out", bc["encoded_spconv_tensor"])]:
+            g = bg["encoded_spconv_tensor"] if k == "out" else \
+                bg["multi_scale_3d_features"][k]
+            stages[k] = dict(lattice_exact=same_st(g, c),
+                             voxels=int(c.valid.sum()),
+                             feats_rel=rel_err(g.feats.cpu(), c.feats))
+    grid = cpu.final_grid()
+    with torch.no_grad():
+        bev_c = cpu.map_to_bev_module(bc["encoded_spconv_tensor"], grid)
+        bev_g = gpu_m.map_to_bev_module(to(bc["encoded_spconv_tensor"], dev),
+                                        grid)
+        stages["bev"] = dict(exact=bool(torch.equal(bev_g.cpu(), bev_c)))
+        b2c = cpu.backbone_2d(Pc, Sc, bev_c)
+        b2g = gpu_m.backbone_2d(Pg, Sg, bev_c.to(dev))
+        stages["backbone_2d"] = dict(rel=rel_err(b2g.cpu(), b2c))
+        hc = cpu.dense_head(Pc, b2c)
+        hg = gpu_m.dense_head(Pg, b2c.to(dev))
+        stages["head"] = {k: rel_err(hg[k].cpu(), hc[k]) for k in hc}
+        # the untrained head's scores lie within ulps of each other, so the
+        # devices' top-k orders differ; seeded N(0, 2) class logits part
+        # them (phase 7 does the same for CAGroup3D's proposals)
+        hc = dict(hc, cls_preds=torch.randn(
+            hc["cls_preds"].shape, generator=torch.Generator().manual_seed(
+                0)) * 2)
+        pc = cpu.dense_head.generate_predicted_boxes(hc)
+        pg = gpu_m.dense_head.generate_predicted_boxes(
+            {k: v.to(dev) for k, v in hc.items()})
+    names = ("boxes", "scores", "labels", "valid")
+    stages["boxes"] = agree(dict(zip(names, pg)), dict(zip(names, pc)),
+                            ("labels", "valid"), ("boxes",))
+    for k in ("vfe", "x_conv1", "x_conv2", "x_conv3", "x_conv4", "out"):
+        st_ok &= stages[k]["lattice_exact"] and stages[k]["feats_rel"] < TOL
+    st_ok &= stages["vfe"]["feats_rel"] < 1e-5 and stages["bev"]["exact"]
+    st_ok &= stages["backbone_2d"]["rel"] < 1e-3 and \
+        max(stages["head"].values()) < 1e-3 and stages["boxes"]["ok"]
+    kept = int(pc[3].sum())
+    emit({"phase": "second-reference", **KITTI_TAG, "ok": st_ok and kept > 0,
+          "key_bits": list(cpu.key_bits), "detections": kept,
+          "stages": stages})
+    if not st_ok or kept == 0:
+        fail("second-reference", "card and CPU disagree on the tiny SECOND")
+
+
+def phase_second_test_cli(dev, gpu, power, cfg):
+    """second-test-cli: a raw KITTI tree of KITTI_CLI_FRAMES 120k-point
+    frames with 18 labelled objects each (``write_kitti_tree``, then its
+    infos), a checkpoint of the YAML's full-width SECOND (seeded, prior
+    lifted) and the ``test`` CLI run in-process over it at batch 1.
+    Held: result.pkl has every frame; ``forward_eval``'s inputs equal the
+    loader's batches bitwise, on the card, and result.pkl's boxes, scores
+    and labels equal its outputs unpadded by ``pred_valid`` bitwise; each
+    batch holds the points of its frame inside the range that the writer
+    counted; the GT as predictions scores the official 3D AP R40 of 100
+    on every class and difficulty, and 0 moved 2 m along x; the model's
+    metrics finite; K1 launched 11 times a frame; two direct calls the
+    same bits.  Prints ms/scene and the loader's share."""
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.datasets import kitti_eval as KE
+    from cagroup3d_tpu_torch.models.detectors.second_net import SECONDNet
+    from cagroup3d_tpu_torch.tools import test as cli
+    from cagroup3d_tpu_torch.training.checkpoint import save_checkpoint
+    from cagroup3d_tpu_torch.utils.synthetic import write_kitti_tree
+    names = list(cfg.CLASS_NAMES)
+    calls, loaders, harness_s, bad = [], [], [], []
+    forward, build_loader, evaluate = (SECONDNet.forward_eval,
+                                       cli.build_dataloader,
+                                       cli.eval_one_epoch)
+
+    def recorded(self, batch, cur_epoch=None):
+        out = forward(self, batch, cur_epoch=cur_epoch)
+        calls.append((self, dict(batch), dict(out)))
+        return out
+
+    def recording_loader(**kw):
+        ds, loader, sampler = build_loader(**kw)
+        loaders.append((ds, Recording(loader)))
+        return ds, loaders[-1][1], sampler
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        harness_s.append(time.perf_counter() - t0)
+        return out
+
+    cwd, t_phase = os.getcwd(), time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
+        tree = os.path.join(tmp, "kitti")
+        t0 = time.time()
+        in_range = write_kitti_tree(tree, KITTI_CLI_FRAMES,
+                                    n_points=KITTI_POINTS, seed=0)
+        tree_s = time.time() - t0
+        ckpt = os.path.join(tmp, "checkpoint_epoch_80.pkl")
+        save_checkpoint(ckpt, second_model(cfg, "cpu", seed=0))
+        args, cfg_cli = cli.parse_config(
+            ["--cfg_file", KITTI_CFG, "--ckpt", ckpt, "--set",
+             "DATA_CONFIG.DATA_PATH", tree])
+        SECONDNet.forward_eval = recorded
+        cli.build_dataloader, cli.eval_one_epoch = recording_loader, timed
+        launch_counts(reset=True)
+        try:
+            os.chdir(tmp)
+            ret = cli.main(args, cfg_cli)[ckpt]
+        finally:
+            os.chdir(cwd)
+            SECONDNet.forward_eval = forward
+            cli.build_dataloader, cli.eval_one_epoch = build_loader, evaluate
+        launches = launch_counts()
+        eval_dir = os.path.join(tmp, "output", cfg_cli.EXP_GROUP_PATH,
+                                cfg_cli.TAG, args.extra_tag, "eval")
+        with open(os.path.join(eval_dir, "result.pkl"), "rb") as f:
+            det = pickle.load(f)
+    dataset, loader = loaders[0]
+    batches = loader.batches
+    if not len(det) == len(calls) == len(batches) == KITTI_CLI_FRAMES:
+        bad.append(f"{len(det)} frames in result.pkl, {len(calls)} calls, "
+                   f"{len(batches)} batches")
+    on_card = all(next(m.parameters()).is_cuda and inp["points"].is_cuda
+                  for m, inp, _ in calls)
+    inputs_equal = outputs_equal = points_ok = True
+    for (m, inp, out), b, d in zip(calls, batches, det):
+        inputs_equal &= all(torch.equal(inp[k].cpu(), torch.from_numpy(b[k]))
+                            for k in ("points", "points_valid"))
+        v = out["pred_valid"][0].cpu().numpy()
+        mine = dict(boxes_lidar=out["pred_boxes"][0].cpu().numpy()[v],
+                    score=out["pred_scores"][0].cpu().numpy()[v],
+                    pred_labels=out["pred_labels"][0].cpu().numpy()[v])
+        outputs_equal &= str(d["frame_id"]) == b["frame_id"][0] and all(
+            d[k].dtype == x.dtype and np.array_equal(d[k], x)
+            for k, x in mine.items())
+        points_ok &= int(b["points_valid"][0].sum()) == \
+            in_range[b["frame_id"][0]]
+    if not on_card:
+        bad.append("the model or its inputs were not on the card")
+    if not inputs_equal:
+        bad.append("forward_eval's inputs differ from the loader's batches")
+    if not outputs_equal:
+        bad.append("result.pkl differs from forward_eval's outputs")
+    if not points_ok:
+        bad.append("a batch's points differ from the writer's count in range")
+
+    def oracle(shift):
+        preds, fids = [], []
+        for info in dataset.infos:
+            a = info["annos"]
+            gt = a["gt_boxes_lidar"].copy()
+            gt[:, 0] += shift
+            preds.append(dict(pred_boxes=gt,
+                              pred_scores=np.full(len(gt), 0.9, np.float32),
+                              pred_labels=np.array(
+                                  [names.index(n) for n in
+                                   a["name"][:len(gt)]], np.int32)))
+            fids.append(info["point_cloud"]["lidar_idx"])
+        annos = dataset.generate_prediction_dicts({"frame_id": fids}, preds,
+                                                  names)
+        r, _ = dataset.evaluation(annos, names)
+        return {f"{c}_3d/{d}_R40": float(r[f"{c}_3d/{d}_R40"])
+                for c in names for d in ("easy", "moderate", "hard")}
+
+    t0 = time.perf_counter()
+    hit = oracle(0.0)
+    eval_s = time.perf_counter() - t0
+    miss = oracle(2.0)
+    if set(hit.values()) != {100.0}:
+        bad.append(f"the GT as predictions does not score 100: {hit}")
+    if set(miss.values()) != {0.0}:
+        bad.append(f"the GT moved 2 m does not score 0: {miss}")
+    if not ret or not all(np.isfinite(float(v)) for v in ret.values()):
+        bad.append("the model's metrics are missing or not finite")
+    if launches["sparse_conv"] != SECOND_K1_PER_SCENE * KITTI_CLI_FRAMES:
+        bad.append(f"K1 launched {launches['sparse_conv']} times over "
+                   f"{KITTI_CLI_FRAMES} frames")
+    with torch.inference_mode():
+        two = [calls[0][0].forward_eval(calls[0][1]) for _ in range(2)]
+    two_same = all(torch.equal(two[0][k], two[1][k]) for k in two[0])
+    if not two_same:
+        bad.append("two direct forward_eval calls give different bits")
+    emit({"phase": "second-test-cli", **KITTI_TAG, "ok": not bad,
+          "gpu": gpu, "power_limit": power, "frames": len(det),
+          "points_per_frame": KITTI_POINTS,
+          "points_in_range": sorted(in_range.values()),
+          "batch_size": 1, "tree_seconds": tree_s,
+          "ms_per_scene": harness_s[0] * 1e3 / KITTI_CLI_FRAMES,
+          "loader_share": sum(loader.waits) / harness_s[0],
+          "launches": launches,
+          "detections": [len(d["name"]) for d in det],
+          "Car_3d/moderate_R40": float(ret.get("Car_3d/moderate_R40",
+                                               float("nan"))),
+          "oracle_R40": sorted(set(hit.values())),
+          "oracle_shifted_R40": sorted(set(miss.values())),
+          "two_calls_same_bits": two_same,
+          "oracle_eval_seconds": eval_s,
+          "matcher": KE.native_error() or "native",
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("second-test-cli", "; ".join(bad))
+    return launches
+
+
+def phase_bits_after_second(dev):
+    """bits: a CAGroup3D built and run after the SECOND phases packs keys
+    at 10/10/10: the tiny ScanNet model's forward on the card, every K1
+    launch recorded with the global key bits."""
+    import torch
+    from cagroup3d_tpu_torch.core import hashing
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.ops.sparse_conv import sparse_conv
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    tc, names, _ = tiny_config()
+    m = build_model(tc, len(names), dev, seed=1)
+    bits = []
+
+    def rec(*args, **kw):
+        bits.append(hashing.key_bits())
+        return sparse_conv(*args, **kw)
+
+    core_conv.sparse_conv = rec
+    try:
+        out = m.forward_eval(synthetic_request(3, dev, **TINY_SCENE),
+                             cur_epoch=10)
+    finally:
+        core_conv.sparse_conv = sparse_conv
+    ok = set(bits) == {(10, 10, 10)} and \
+        bool(torch.isfinite(out["pred_boxes"]).all())
+    emit({"phase": "bits", **KITTI_TAG, "ok": ok,
+          "cagroup3d_k1_calls": len(bits),
+          "key_bits": sorted({tuple(b) for b in bits})})
+    if not ok:
+        fail("bits", f"CAGroup3D after SECOND packed keys at {set(bits)}")
+
+
+def run_kitti_path(dev, gpu, power):
+    """The SECOND phases on KITTI, then the CAGroup3D bits check.  Returns
+    what the ``kernels`` line needs."""
+    cfg = kitti_config()
+    forms, k1_eval, launches = phase_second_requests(dev, gpu, power, cfg)
+    phase_second_reference(dev, cfg)
+    cli_launches = phase_second_test_cli(dev, gpu, power, cfg)
+    phase_bits_after_second(dev)
+    return dict(k1_eval=k1_eval, max_abs=max(f["max_abs"]
+                                             for f in forms.values()),
+                launches=launches, cli_launches=cli_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2535,15 +3083,17 @@ class DistCli:
             bad.append(f"the mAP lines differ: {maps}")
 
 
-def kernel_line(res, rbg, dist):
+def kernel_line(res, rbg, kitti, dist):
     """The ``kernels`` line: each kernel's launches summed over the paths'
     main-path runs (K1, K3: the timed training steps; K2: the requests)
     and, as ``train_cli_launches``, over the ``train`` CLI's runs (K1, K3:
     its steps; K2: the ``test`` CLI on its checkpoint), as
     ``rbgnet_launches``, over every RBGNet run (none launches a kernel),
-    and, as ``dist_launches``, over the dist phase's ranks; its largest
-    error over every replay, and its times from the ScanNet path, with
-    each path's own beside them."""
+    as ``second_launches`` and ``second_test_cli_launches``, over
+    SECOND's three requests and its ``test`` CLI run, and, as
+    ``dist_launches``, over the dist phase's ranks; its largest error over
+    every replay, and its times from the ScanNet path, with each path's
+    own beside them (``kitti_second``: K1's eval calls of one frame)."""
     def times(st):
         return {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}
@@ -2574,6 +3124,9 @@ def kernel_line(res, rbg, dist):
             ("K3 sparse_conv_dw", k3, "sparse_conv.cu", "pallas_conv.py:472",
              lambda r: r["k3_train"]["max_abs"], "sparse_conv_dw")):
         paths = {p: fn(r) for p, r in res.items()}
+        second = {"launches": kitti["launches"][counter]}
+        if counter == "sparse_conv":
+            second.update(times(kitti["k1_eval"]))
         out.append({"name": name, "route": "cuda",
                     "source": "cagroup3d_tpu_torch/csrc/" + src,
                     "replaces": "cagroup3d_tpu/ops/" + line,
@@ -2582,9 +3135,14 @@ def kernel_line(res, rbg, dist):
                     "train_cli_launches": sum(v["train_cli_launches"]
                                               for v in paths.values()),
                     "rbgnet_launches": sum(r[counter] for r in rbg.values()),
+                    "second_launches": kitti["launches"][counter],
+                    "second_test_cli_launches": kitti["cli_launches"][
+                        counter],
                     "dist_launches": dist[counter],
-                    "max_abs_err": max(err(r) for r in res.values()),
-                    "paths": paths})
+                    "max_abs_err": max([err(r) for r in res.values()] + (
+                        [kitti["max_abs"]] if counter == "sparse_conv"
+                        else [])),
+                    "paths": dict(paths, kitti_second=second)})
     return {"kernels": out}
 
 
@@ -2640,9 +3198,11 @@ def main():
     for path in (RbgPath("scannet", JAX_LEARN_DROP_RBG),
                  RbgPath("sunrgbd", JAX_LEARN_DROP_RBG_YAW)):
         rbg[path.name] = run_rbg_path(dev, gpu, power, path)
+    # SECOND on KITTI ------------------------------------------------------
+    kitti = run_kitti_path(dev, gpu, power)
     # training over two ranks, and the CLIs with --dist --------------------
     dist = phase_dist(dev, gpu, power)
-    emit(kernel_line(res, rbg, dist))
+    emit(kernel_line(res, rbg, kitti, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA GPU:
 
     python3 profile_port.py [--config scannet|sunrgbd|rbgnet_scannet|
-        rbgnet_sunrgbd] [--scenes 9] [--out profile.json]
+        rbgnet_sunrgbd|kitti_second] [--scenes 9] [--out profile.json]
 
 It builds the configuration of ``chip_smoke.py`` (full-width CAGroup3D of
 the ``--config`` YAML -- ScanNet, or SUN RGB-D on headed scenes --,
@@ -48,6 +48,16 @@ warm-up scenes: ``wall`` as above; ``stages``, the median ms of
 aggregation and predictions, ray grouping and its FPS, boxes and NMS);
 ``device`` and ``train`` (the YAML's B = 8 step) as above; none of K1,
 K2 and K3 runs on RBGNet's path.
+
+``--config kitti_second`` profiles the KITTI YAML's full-width SECOND of
+``chip_smoke.py``'s ``second-requests`` (seeded, class prior lifted) on
+three synthetic 120k-point frames (``chip_smoke.kitti_request``), with
+three warm-up frames: ``wall``; ``stages``, the median ms and the peak GB
+of each stage (vfe, backbone_3d, map_to_bev, backbone_2d, head, boxes:
+decode, top-k and NMS), with ``nms`` the greedy NMS alone inside
+``boxes`` and ``nms_loop`` its sequential loop (NMS minus its overlap
+matrix); ``device``; ``bits``, the two calls' outputs (eval only, no
+``train`` phase: SECOND's training is not ported).
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -317,10 +327,79 @@ def profile_rbgnet(args, card, dev, log):
     return log
 
 
+def profile_second(args, card, dev, log):
+    """The ``--config kitti_second`` phases (module docstring)."""
+    import torch
+    from chip_smoke import kitti_config, kitti_request, second_model
+    from cagroup3d_tpu_torch.core import nms as nms_mod
+    from cagroup3d_tpu_torch.core.hashing import key_bits_scope
+    from cagroup3d_tpu_torch.core.module import Ctx, flat_state
+    cfg = kitti_config()
+    model = second_model(cfg, dev, seed=0)
+    batches = [kitti_request(cfg, s, dev) for s in (0, 1, 2)]
+    for b in batches:                                   # warm-up
+        model.forward_eval(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    wall_med = wall_phase(model.forward_eval, batches, args.scenes, card,
+                          log)
+
+    times, peaks = defaultdict(list), defaultdict(list)
+
+    def staged(fn, name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name].append(torch.cuda.max_memory_allocated(dev) / 1e9)
+            return out
+        return run
+
+    mods = ((model.vfe, "vfe"), (model.backbone_3d, "backbone_3d"),
+            (model.map_to_bev_module, "map_to_bev"),
+            (model.backbone_2d, "backbone_2d"), (model.dense_head, "head"))
+    saved = (nms_mod.greedy_nms, nms_mod.overlap_matrix)
+    for mod, name in mods:
+        mod.forward = staged(mod.forward, name)
+    head = model.dense_head
+    head.generate_predicted_boxes = staged(head.generate_predicted_boxes,
+                                           "boxes")
+    nms_mod.greedy_nms = timed(saved[0], "nms", times)
+    nms_mod.overlap_matrix = timed(saved[1], "nms_overlap_matrix", times)
+    try:
+        with torch.no_grad(), key_bits_scope(model.key_bits):
+            P, S = flat_state(model)
+            for i in range(args.scenes):
+                b = batches[i % 3]
+                out = model.forward_scene(P, S, Ctx(), b["points"][0],
+                                          b["points_valid"][0])
+                head.generate_predicted_boxes(out)
+    finally:
+        for mod, _ in mods:
+            del mod.__dict__["forward"]
+        del head.__dict__["generate_predicted_boxes"]
+        nms_mod.greedy_nms, nms_mod.overlap_matrix = saved
+    med = {k: statistics.median(v) for k, v in times.items()}
+    med["nms_loop"] = med["nms"] - med["nms_overlap_matrix"]
+    emit({"phase": "stages", **card, "scenes": args.scenes,
+          "median_ms": med, "peak_gb": {k: max(v) for k, v in peaks.items()},
+          "sum_of_stage_medians_ms": sum(med[n] for _, n in mods) +
+          med["boxes"], "nms_share_of_wall": med["nms"] / wall_med}, log)
+    device_phase(model.forward_eval, batches, wall_med, card, dev, log)
+    outs = [model.forward_eval(batches[0]) for _ in range(2)]
+    same = same_bits(outs[0], outs[1])
+    emit({"phase": "bits", **card, "two_calls_same_bits": same}, log)
+    return 0 if same else 1
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("scannet", "sunrgbd",
-                                         "rbgnet_scannet", "rbgnet_sunrgbd"),
+                                         "rbgnet_scannet", "rbgnet_sunrgbd",
+                                         "kitti_second"),
                     default="scannet")
     ap.add_argument("--scenes", type=int, default=9)
     ap.add_argument("--train-steps", type=int, default=3)
@@ -355,6 +434,11 @@ def main():
         card["config"] = args.config
         profile_rbgnet(args, card, dev, log)
         return write(log, args.out)
+    if args.config == "kitti_second":
+        card["config"] = args.config
+        rc = profile_second(args, card, dev, log)
+        write(log, args.out)
+        return rc
     cfg = load_config(CFGS[args.config])
     mc, names = cfg.MODEL, cfg.CLASS_NAMES
     mc.INPUT_CAP = INPUT_CAP

@@ -15,8 +15,9 @@ Function's gradients within 2e-2 of plain autograd through
 import pytest
 import torch
 
-from cagroup3d_tpu_torch.core.hashing import INVALID_KEY, pack_coords
-from cagroup3d_tpu_torch.core.voxelize import unique_voxels
+from cagroup3d_tpu_torch.core.hashing import (INVALID_KEY, key_bits_scope,
+                                              pack_coords)
+from cagroup3d_tpu_torch.core.voxelize import spconv_reduce_lat, unique_voxels
 from cagroup3d_tpu_torch.ops.segsum import segment_sums, segment_sums_plain
 from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
                                                  sparse_conv_dfeats,
@@ -98,6 +99,55 @@ K1_CASES = [
     (3, 1, 1, 64, 192, False, 512, ""), (3, 1, 1, 64, 192, False, 17000, ""),
     (3, 1, 1, 192, 64, False, 512, ""), (9, 10, 10, 64, 64, False, 1024, ""),
     (5, 10, 10, 64, 64, False, 1024, "")]
+
+
+# SECOND on KITTI packs keys at (11, 11, 8) bits over a 1408 x 1600 x 41
+# lattice (the z field 256 wide, not 1024).  Its K1 forms: the submanifold
+# convs (Cin 4 at the stem, padded to 16) and the strided convs at coords,
+# queried at o*2 - p + 1 over spconv's output lattice; (C, Cout, pad,
+# cap, kind), the tables in the extent's top corner, so that neighbours
+# reach past its last voxel; "wrap": z at both ends of the 8-bit field.
+KITTI_EXTENT = (1408, 1600, 41)
+K1_KITTI_CASES = [(4, 16, None, 65536, ""), (16, 16, None, 65536, ""),
+                  (32, 32, None, 32768, ""), (64, 64, None, 8192, ""),
+                  (16, 32, 1, 65536, ""), (32, 64, 1, 32768, ""),
+                  (64, 64, (1, 1, 0), 16384, ""), (16, 16, None, 4096, "wrap")]
+
+
+@pytest.mark.parametrize("C,Cout,pad,cap,kind", K1_KITTI_CASES)
+def test_sparse_conv_kernel_kitti_bits(dev, C, Cout, pad, cap, kind):
+    g = torch.Generator().manual_seed(cap + C)
+    P = 2 * cap
+    span = torch.tensor([120, 120, 41], dtype=torch.int32)
+    lat = torch.tensor(KITTI_EXTENT, dtype=torch.int32) - 1 - \
+        (torch.rand(P, 3, generator=g) * span).to(torch.int32)
+    if kind == "wrap":       # packed z 0..7 and 248..255
+        z = torch.randint(0, 16, (P,), generator=g, dtype=torch.int32)
+        lat[:, 2] = torch.where(z < 8, z - 8, 232 + z)
+    with key_bits_scope((11, 11, 8)):
+        st, _ = unique_voxels(lat, torch.randn(P, C, generator=g),
+                              torch.rand(P, generator=g) < 0.9, cap)
+        lat, valid, feats = (t[None].to(dev) for t in
+                             (st.coords, st.valid, st.feats))
+        q = (None, None)
+        if pad is not None:
+            out, ok = spconv_reduce_lat(st.coords, st.valid, 3, 2, pad,
+                                        cap // 2, in_extent=KITTI_EXTENT)
+            p = torch.tensor(pad, dtype=torch.int32).expand(3)
+            q = ((out * 2 - p + 1)[None].to(dev), ok[None].to(dev))
+            assert int(ok.sum()) > 0
+        w = torch.randn(1, 27, C, Cout, device=dev) * 0.1
+        before = sparse_conv.launches
+        got = sparse_conv(lat, valid, feats, w, 3, *q)
+        torch.cuda.synchronize()
+        assert sparse_conv.launches == before + 1
+        ref = sparse_conv_plain(lat, valid, feats, w, 3, *q)
+        again = sparse_conv(lat, valid, feats, w, 3, *q)
+    rows = valid if pad is None else q[1]
+    assert bool((got[~rows] == 0).all())
+    assert _rel(got, ref) < 2e-2
+    assert _row(got, ref) < 1e-3
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("k,G,Gw,C,Cout,query,cap,kind", K1_CASES)

@@ -258,7 +258,10 @@ def test_main_path_sources_are_key_sorted(setup, monkeypatch):
 def test_port_imports_no_jax():
     """The port's tiny eval forward and one tiny training step, ScanNet and
     SUN RGB-D (the yaw path, headed GT boxes), of CAGroup3D and of RBGNet,
-    run in a process where jax and the JAX package are blocked."""
+    and SECOND's KITTI eval (a synthetic tree's infos, the loader, a tiny
+    forward at KITTI's grid, the prediction dicts and the official
+    evaluation), run in a process where jax and the JAX package are
+    blocked."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['cagroup3d_tpu'] = None\n"
@@ -321,6 +324,35 @@ def test_port_imports_no_jax():
         "    opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 10)\n"
         "    tb = make_train_step(m, opt, device='cpu')(b)[1]\n"
         "    assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
+        "import tempfile\n"
+        "import cagroup3d_tpu_torch.tools.create_infos\n"
+        "from cagroup3d_tpu_torch.datasets import build_dataloader\n"
+        "from cagroup3d_tpu_torch.utils.synthetic import write_kitti_tree\n"
+        "cfg = load_config('tools/cfgs/kitti_models/second.yaml')\n"
+        "names = cfg.CLASS_NAMES\n"
+        "mc = cfg.MODEL\n"
+        "mc.INPUT_CAP = 4096\n"
+        "mc.BACKBONE_3D.CAPS = {1: 4096, 2: 2048, 4: 1024, 8: 512}\n"
+        "mc.BACKBONE_2D.update(LAYER_NUMS=[1, 1], NUM_FILTERS=[16, 32], "
+        "NUM_UPSAMPLE_FILTERS=[16, 16])\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    write_kitti_tree(d, 1, n_points=20000)\n"
+        "    cfg.DATA_CONFIG.DATA_PATH = d\n"
+        "    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, names, 1, "
+        "training=False)\n"
+        "    m = build_network(mc, len(names), device='cpu', dataset=ds)\n"
+        "    assert m.key_bits == (11, 11, 8)\n"
+        "    b = next(iter(loader))\n"
+        "    out = m.forward_eval({k: torch.from_numpy(b[k]) for k in "
+        "('points', 'points_valid')})\n"
+        "    assert torch.isfinite(out['pred_boxes']).all()\n"
+        "    v = out['pred_valid'][0]\n"
+        "    annos = ds.generate_prediction_dicts(b, [dict(pred_boxes="
+        "out['pred_boxes'][0][v].numpy(), pred_scores=out['pred_scores']"
+        "[0][v].numpy(), pred_labels=out['pred_labels'][0][v].numpy())], "
+        "names)\n"
+        "    ret, table = ds.evaluation(annos, names)\n"
+        "    assert 'Car_3d/moderate_R40' in ret, ret\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")

@@ -317,8 +317,8 @@ def test_frame_check_sees_a_frame_fault(trees, monkeypatch, name, attr,
 def test_unported_dataset_and_stage_raise(trees):
     cfg = _data_cfg("scannet", trees["scannet"][0], SCENE["n_points"])
     dc = copy.deepcopy(cfg.DATA_CONFIG)
-    dc.DATASET = "KittiDataset"
-    with pytest.raises(NotImplementedError, match="KittiDataset"):
+    dc.DATASET = "NuScenesDataset"
+    with pytest.raises(NotImplementedError, match="NuScenesDataset"):
         pds.build_dataloader(dc, cfg.CLASS_NAMES, 1, training=False)
     dc = copy.deepcopy(cfg.DATA_CONFIG)
     dc.DATA_AUGMENTOR_TRAIN.AUG_CONFIG_LIST.append(

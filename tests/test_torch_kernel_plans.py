@@ -14,7 +14,8 @@ wherever the grid would be under two waves of the card's SMs.  The
 full-width SUN RGB-D model (the yaw path) adds its head's shapes: the
 3-vote ``feature_offset`` k3 at Cout 192 (three 64-column tiles for K1, a
 128-column and a half-full 128-column tile for K3) and the per-class k9 and
-k5 convs at 10 classes.
+k5 convs at 10 classes.  SECOND on KITTI adds its sparse backbone's 7
+distinct eval shapes (11 launches a scene, Cin 4 at the stem).
 
 K3 (``spconv_k3_gemm``) reads its plan as a grid of (C tile x Cout tile,
 pair split, group x offset): at the 16 distinct shapes of the 39 K3 calls
@@ -61,7 +62,15 @@ SUNRGBD_FORWARD = [("c", 1, 32768, 64, 192, 3), ("d", 10, 4096, 64, 64, 9),
 SUNRGBD_FEATURE_BACKWARD = [("c", 1, 32768, 192, 64, 3),
                             ("d", 10, 4096, 64, 64, 9),
                             ("e", 10, 2048, 64, 64, 5)]
-SHAPES = [("fwd",) + s for s in FORWARD + SUNRGBD_FORWARD] + \
+# SECOND on KITTI (eval, key bits (11, 11, 8)): the 8 submanifold convs
+# ("g": Cin 4 at the stem) and the 3 strided convs at coords ("h", queries
+# at the output lattice's capacity) of VoxelBackBone8x, 7 distinct shapes
+SECOND_FORWARD = [("g", 1, 65536, 4, 16, 3), ("g", 1, 65536, 16, 16, 3),
+                  ("g", 1, 32768, 32, 32, 3), ("g", 1, 16384, 64, 64, 3),
+                  ("g", 1, 8192, 64, 64, 3), ("h", 1, 32768, 16, 32, 3),
+                  ("h", 1, 16384, 32, 64, 3)]
+SHAPES = [("fwd",) + s for s in FORWARD + SUNRGBD_FORWARD +
+          SECOND_FORWARD] + \
     [("bwd",) + s for s in FEATURE_BACKWARD + SUNRGBD_FEATURE_BACKWARD]
 IDS = [f"{d}-{f}-G{G}-NQ{NQ}-{C}x{Cout}-k{K}"
        for d, f, G, NQ, C, Cout, K in SHAPES]
