@@ -1,22 +1,27 @@
-"""Indoor data augmentation pipeline (numpy, host-side).
+"""Data augmentation pipeline (numpy, host-side).
 
-The port's own copy of the indoor part of
-``cagroup3d_tpu/datasets/augmentor.py`` (the reference's
-pcdet/datasets/augmentor/{data_augmentor,augmentor_utils}.py): every stage
-that the ScanNet and SUN RGB-D dataset YAMLs name -- global_alignment,
-point_seg_class_mapping, random_world_flip / rotation / rotation_mmdet3d /
-scaling / translation and indoor_point_sample.  The same math as the JAX
-package's copy (the mmdet3d rotation sign, the y-flip heading transform),
-drawing from the global ``np.random`` stream in the same order, so one
-seed gives the same scene in both packages.  Any other stage name raises
-``NotImplementedError``; the outdoor stages (``gt_sampling``, the local
-and frustum augmentations) are not ported.
+The port's own copy of ``cagroup3d_tpu/datasets/augmentor.py`` (the
+reference's pcdet/datasets/augmentor/{data_augmentor,augmentor_utils,
+database_sampler}.py) for every stage that the ScanNet, SUN RGB-D and
+KITTI dataset YAMLs name -- global_alignment, point_seg_class_mapping,
+gt_sampling (``DataBaseSampler``), random_world_flip / rotation /
+rotation_mmdet3d / scaling / translation and indoor_point_sample.  The
+same math as the JAX package's copy (the mmdet3d rotation sign, the y-flip
+heading transform), drawing from the global ``np.random`` stream in the
+same order, so one seed gives the same scene in both packages.  Any other
+stage name raises ``NotImplementedError``; the local, frustum and pyramid
+augmentations are not ported.
 """
 from __future__ import annotations
 
+import pickle
 from functools import partial
+from pathlib import Path
 
 import numpy as np
+
+from ..utils.box_utils import enlarge_box3d, points_in_boxes_np
+from .indoor_eval import rotated_intersection_np
 
 
 def rotate_points_along_z_np(points, angle):
@@ -109,15 +114,151 @@ def points_random_sampling(points, num_samples):
     return points[choices], choices
 
 
+class DataBaseSampler:
+    """GT-paste augmentation for outdoor training (the reference's
+    database_sampler.py; the JAX package's ``DataBaseSampler``): draw
+    pre-cropped object point clouds from the gt database and paste those
+    that overlap no box in BEV into the scene.
+
+    The db infos are filtered by the ``PREPARE`` filters; each class of
+    ``SAMPLE_GROUPS`` draws round-robin from a permutation of its infos
+    that is redrawn (from the global ``np.random``) when it runs out; the
+    collision test is the rotated BEV intersection of
+    ``indoor_eval.rotated_intersection_np``; the pasted boxes' points
+    (enlarged by ``REMOVE_EXTRA_WIDTH``) are carved out of the scene before
+    the objects' points go in front.  ``USE_ROAD_PLANE`` is read and, as in
+    the JAX package, not applied: sampled boxes keep their database height
+    (the reference moves them onto the frame's road plane)."""
+
+    def __init__(self, root_path, sampler_cfg, class_names, logger=None):
+        self.root_path = Path(root_path)
+        self.class_names = list(class_names)
+        self.num_point_features = int(sampler_cfg.get(
+            "NUM_POINT_FEATURES", 4))
+        self.remove_extra_width = [float(x) for x in sampler_cfg.get(
+            "REMOVE_EXTRA_WIDTH", [0.0, 0.0, 0.0])]
+        self.limit_whole_scene = bool(sampler_cfg.get(
+            "LIMIT_WHOLE_SCENE", False))
+        self.use_road_plane = bool(sampler_cfg.get("USE_ROAD_PLANE", False))
+        self.db_infos = {c: [] for c in self.class_names}
+        for rel in sampler_cfg.get("DB_INFO_PATH", []):
+            path = self.root_path / rel
+            if not path.exists():
+                if logger:
+                    logger.warning(f"gt_sampling: missing db infos {path}")
+                continue
+            with open(path, "rb") as f:
+                infos = pickle.load(f)
+            for c in self.class_names:
+                self.db_infos[c].extend(infos.get(c, []))
+        for fn_name, val in dict(sampler_cfg.get("PREPARE", {})).items():
+            self.db_infos = getattr(self, fn_name)(self.db_infos, val)
+        self.sample_groups = {}
+        for spec in sampler_cfg.get("SAMPLE_GROUPS", []):
+            name, num = str(spec).split(":")
+            if name in self.class_names:
+                n = len(self.db_infos[name])
+                self.sample_groups[name] = dict(
+                    target=int(num), pointer=n, indices=np.arange(n))
+
+    # -- PREPARE filters ------------------------------------------------
+    def filter_by_difficulty(self, db_infos, removed_difficulty):
+        return {k: [i for i in v
+                    if i.get("difficulty", 0) not in removed_difficulty]
+                for k, v in db_infos.items()}
+
+    def filter_by_min_points(self, db_infos, min_gt_points_list):
+        for spec in min_gt_points_list:
+            name, num = str(spec).split(":")
+            if int(num) > 0 and name in db_infos:
+                db_infos[name] = [i for i in db_infos[name]
+                                  if i.get("num_points_in_gt", 0) >=
+                                  int(num)]
+        return db_infos
+
+    # -------------------------------------------------------------------
+    def _draw(self, name, n):
+        """The next n infos of the class's permutation, a new permutation
+        when fewer than n are left (sample_with_fixed_number)."""
+        grp = self.sample_groups[name]
+        infos = self.db_infos[name]
+        if grp["pointer"] + n > len(infos):
+            grp["indices"] = np.random.permutation(len(infos))
+            grp["pointer"] = 0
+        picked = [infos[i] for i in
+                  grp["indices"][grp["pointer"]:grp["pointer"] + n]]
+        grp["pointer"] += n
+        return picked
+
+    def __call__(self, data_dict):
+        gt_boxes = data_dict["gt_boxes"]
+        gt_names = data_dict["gt_names"].astype(str)
+        W = gt_boxes.shape[1] if gt_boxes.size else 7
+        existed = gt_boxes[:, :7].copy()
+        accepted, accepted_boxes = [], []
+        for name, grp in self.sample_groups.items():
+            n = grp["target"]
+            if self.limit_whole_scene:
+                n -= int(np.sum(gt_names == name))
+            n = min(n, len(self.db_infos[name]))
+            if n <= 0:
+                continue
+            cands = self._draw(name, n)
+            boxes = np.stack([np.asarray(c["box3d_lidar"], np.float32)[:W]
+                              for c in cands])
+            if boxes.shape[1] < W:               # db boxes without velocity
+                boxes = np.concatenate(
+                    [boxes, np.zeros((len(boxes), W - boxes.shape[1]),
+                                     np.float32)], axis=1)
+            # collision-free: no BEV overlap with the scene's boxes, the
+            # boxes accepted so far, or another candidate of this draw
+            bev = boxes[:, [0, 1, 3, 4, 6]]
+            i1 = rotated_intersection_np(bev, existed[:, [0, 1, 3, 4, 6]])
+            i2 = rotated_intersection_np(bev, bev)
+            np.fill_diagonal(i2, 0.0)
+            ok = (i1.max(1, initial=0.0) + i2.max(1)) == 0
+            for i in np.flatnonzero(ok):
+                accepted.append(cands[i])
+                accepted_boxes.append(boxes[i])
+                existed = np.concatenate([existed, boxes[i:i + 1, :7]])
+        obj_pts, keep_boxes, keep_names = [], [], []
+        for info, box in zip(accepted, accepted_boxes):
+            f = self.root_path / info["path"]
+            if not f.exists():
+                continue
+            pts = np.fromfile(str(f), np.float32).reshape(
+                -1, self.num_point_features).copy()
+            pts[:, :3] += box[:3]
+            obj_pts.append(pts)
+            keep_boxes.append(box)
+            keep_names.append(info["name"])
+        if not keep_boxes:
+            return data_dict
+        sampled_boxes = np.stack(keep_boxes)
+        obj_pts = np.concatenate(obj_pts, axis=0)
+        points = data_dict["points"]
+        big = enlarge_box3d(sampled_boxes, self.remove_extra_width)
+        inside = points_in_boxes_np(points, big).any(axis=1)
+        mask = data_dict.get("gt_boxes_mask", np.ones(len(gt_boxes), bool))
+        data_dict["points"] = np.concatenate(
+            [obj_pts[:, :points.shape[1]], points[~inside]], axis=0)
+        data_dict["gt_boxes"] = np.concatenate(
+            [gt_boxes[mask][:, :W], sampled_boxes], axis=0)
+        data_dict["gt_names"] = np.concatenate(
+            [gt_names[mask], np.asarray(keep_names)])
+        data_dict.pop("gt_boxes_mask", None)
+        return data_dict
+
+
 class DataAugmentor:
     """Pipeline driver (the reference's data_augmentor.py:19-24, 295-326):
     the stages of ``AUG_CONFIG_LIST`` less ``DISABLE_AUG_LIST``, in order,
     then the heading wrapped into [-pi, pi) and the GT boxes outside
-    ``gt_boxes_mask`` (when given) dropped.  ``root_path``, ``class_names``
-    and ``logger`` keep the JAX package's signature; no indoor stage reads
-    them."""
+    ``gt_boxes_mask`` (when given) dropped.  ``gt_sampling`` reads its
+    database under ``root_path``; ``class_names`` names the classes it
+    samples."""
 
-    STAGES = ("global_alignment", "point_seg_class_mapping",
+    STAGES = ("global_alignment", "point_seg_class_mapping", "gt_sampling",
               "random_world_flip", "random_world_rotation",
               "random_world_rotation_mmdet3d", "random_world_scaling",
               "random_world_translation", "indoor_point_sample")
@@ -131,8 +272,13 @@ class DataAugmentor:
                 continue
             if cfg.NAME not in self.STAGES:
                 raise NotImplementedError(
-                    f"augmentor stage {cfg.NAME!r} is not ported (indoor "
-                    f"stages only: {', '.join(self.STAGES)})")
+                    f"augmentor stage {cfg.NAME!r} is not ported (ported "
+                    f"stages: {', '.join(self.STAGES)})")
+            if cfg.NAME == "gt_sampling":
+                sampler = DataBaseSampler(root_path, cfg, class_names,
+                                          logger=logger)
+                self.queue.append(lambda data_dict, _s=sampler: _s(data_dict))
+                continue
             self.queue.append(partial(getattr(self, cfg.NAME), config=cfg))
 
     # -- pipeline stages -------------------------------------------------

@@ -1,7 +1,7 @@
-"""KITTI dataset (eval): infos, velodyne points, the padded batch, the
+"""KITTI dataset: infos, velodyne points, the padded batch, the
 prediction dicts and the official evaluation.
 
-The port's own copy of the eval path of ``cagroup3d_tpu/datasets/
+The port's own copy of the lidar path of ``cagroup3d_tpu/datasets/
 kitti_dataset.py`` (the reference's pcdet/datasets/kitti/kitti_dataset.py):
 it reads pcdet-format ``kitti_infos_*.pkl`` (camera-frame annos and calib
 matrices per frame), converts GT boxes to the lidar frame, reads the
@@ -13,9 +13,12 @@ points and ``MAX_GT`` boxes), so the batches equal the JAX package's.
 points outside the camera's field of view stay (the reference keeps only
 those inside it).  Evaluation is the official R11/R40 protocol
 (``kitti_eval.py``) when the infos carry camera annos, else the lidar-frame
-3D-IoU AP of the indoor evaluator.  Training (gt sampling and the world
-augmentations) is not ported yet, nor the camera inputs (images, depth
-maps) of the image-based models.
+3D-IoU AP of the indoor evaluator.  In training the train split's infos
+go through the ``DATA_AUGMENTOR`` pipeline first (gt sampling from the
+database under the data root, the world flip, rotation and scaling;
+``augmentor.DataAugmentor``, drawing from the global ``np.random``), then
+the same preparation, with ``shuffle_points`` on.  The camera inputs
+(images, depth maps) of the image-based models are not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 
 from ..utils.box_utils import (boxes_camera_to_imageboxes,
                                boxes_camera_to_lidar, boxes_lidar_to_camera)
+from .augmentor import DataAugmentor
 from .dataset import (DatasetTemplate, parse_sample_points,
                       prepare_outdoor_sample)
 from .indoor_eval import indoor_eval
@@ -40,10 +44,6 @@ class KittiDataset(DatasetTemplate):
 
     def __init__(self, dataset_cfg, class_names, root_path=None,
                  training=True, logger=None):
-        if training:
-            raise NotImplementedError(
-                "KITTI training (gt_sampling and the world flip, rotation and "
-                "scaling) is not ported yet")
         super().__init__(dataset_cfg=dataset_cfg, class_names=class_names,
                          training=training, root_path=root_path,
                          logger=logger)
@@ -66,6 +66,9 @@ class KittiDataset(DatasetTemplate):
         self.point_cap = int(dataset_cfg.get("POINT_CAP", 65536))
         self.max_gt = int(dataset_cfg.get("MAX_GT", 64))
         self.fov_only = bool(dataset_cfg.get("FOV_POINTS_ONLY", True))
+        aug_cfg = dataset_cfg.get("DATA_AUGMENTOR", None)
+        self.augmentor = DataAugmentor(root, aug_cfg, class_names, logger) \
+            if training and aug_cfg is not None else None
         self.sample_num_points = parse_sample_points(dataset_cfg, self.mode)
         self.shuffle_points = False
         for proc in dataset_cfg.get("DATA_PROCESSOR", []):
@@ -120,7 +123,8 @@ class KittiDataset(DatasetTemplate):
         rs = np.random.RandomState(
             zlib.crc32(str(sample_idx).encode()) & 0x7FFFFFFF)
         return prepare_outdoor_sample(
-            data_dict, rs, augmentor=None, shuffle_points=self.shuffle_points,
+            data_dict, rs, augmentor=self.augmentor,
+            shuffle_points=self.shuffle_points,
             class_names=self.class_names,
             pc_range=self.dataset_cfg.POINT_CLOUD_RANGE,
             point_cap=self.point_cap, max_gt=self.max_gt,

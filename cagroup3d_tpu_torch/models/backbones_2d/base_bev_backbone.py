@@ -16,6 +16,11 @@ padding:
   s-dilated input padded by (pad_a, pad_b) with the kernel as given, which
   is ``F.conv_transpose2d`` with the kernel flipped in space and stored
   [Cin, Cout, kh, kw], cropped by k - 1 - pad_a at the start.
+
+In training the B scenes' maps go through as one [B, C, H, W] batch; each
+BN (momentum 0.01) normalizes with the statistics of all B * H * W
+positions, which is what the JAX package's per-scene sums pooled over its
+``scene`` axis give, and records its running-stat update.
 """
 from __future__ import annotations
 
@@ -35,13 +40,21 @@ def _same_pads(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def _batched(fn):
+    """Run ``fn`` on [B, C, H, W]; a [C, H, W] map goes in as B = 1."""
+    def run(x, *a):
+        return fn(x, *a) if x.dim() == 4 else fn(x[None], *a)[0]
+    return run
+
+
+@_batched
 def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     """``lax.conv_general_dilated(x, w, (s, s), "SAME")`` on x [C, H, W]
-    with w HWIO [k, k, Cin, Cout] -> [Cout, H', W']."""
+    (or [B, C, H, W]) with w HWIO [k, k, Cin, Cout] -> [Cout, H', W']."""
     k = w.shape[0]
     (t, b), (l, r) = (_same_pads(n, k, stride) for n in x.shape[-2:])
-    x = F.pad(x[None], (l, r, t, b))
-    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)[0]
+    x = F.pad(x, (l, r, t, b))
+    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
 
 
 def _transpose_pads(k: int, s: int):
@@ -51,9 +64,11 @@ def _transpose_pads(k: int, s: int):
     return pad_a, pad_len - pad_a
 
 
+@_batched
 def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor, stride: int):
     """``lax.conv_transpose(x, w, (s, s), "SAME")`` (no
-    ``transpose_kernel``) on x [C, H, W] with w HWIO -> [Cout, sH, sW]:
+    ``transpose_kernel``) on x [C, H, W] (or [B, C, H, W]) with w HWIO ->
+    [Cout, sH, sW]:
     the full transposed conv (padding (k - 1, k - 1) of the dilated input)
     cropped to JAX's padding."""
     k = w.shape[0]
@@ -62,18 +77,33 @@ def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor, stride: int):
     if pad_a > k - 1 or extra >= stride:
         raise ValueError(f"no conv_transpose2d form for k={k}, s={stride}")
     wt = w.flip(0, 1).permute(2, 3, 0, 1)                 # [Cin, Cout, k, k]
-    y = F.conv_transpose2d(x[None], wt, stride=stride,
-                           output_padding=extra)[0]
+    y = F.conv_transpose2d(x, wt, stride=stride, output_padding=extra)
     lo = k - 1 - pad_a
     H, W = ((n - 1) * stride + 1 + pad_a + pad_b - k + 1
             for n in x.shape[-2:])
-    return y[:, lo:lo + H, lo:lo + W]
+    return y[..., lo:lo + H, lo:lo + W]
 
 
-def bn2d(P: Params, S: Params, path: str, x: torch.Tensor) -> torch.Tensor:
-    """Eval BN of x [C, H, W] with the running statistics (eps 1e-3),
-    ``core/norm.masked_batch_norm``'s arithmetic."""
+def bn2d(P: Params, S: Params, path: str, x: torch.Tensor,
+         updates: Optional[Params] = None) -> torch.Tensor:
+    """BN of x [C, H, W] (eps 1e-3), ``core/norm.masked_batch_norm``'s
+    arithmetic: with the running statistics, or with ``updates`` (training,
+    x [B, C, H, W]) with the batch statistics of all B * H * W positions,
+    recording the new running statistics there (momentum 0.01; biased
+    variance in the normalizer, unbiased in the buffer)."""
+    momentum = 0.01
     mean, var = S[path + ".running_mean"], S[path + ".running_var"]
+    if updates is not None:
+        cnt = float(x.shape[0] * x.shape[2] * x.shape[3])
+        bmean = x.sum((0, 2, 3)) / cnt
+        bvar = ((x * x).sum((0, 2, 3)) / cnt - bmean * bmean).clamp(min=0.0)
+        with torch.no_grad():
+            updates[path + ".running_mean"] = \
+                (1 - momentum) * mean + momentum * bmean
+            updates[path + ".running_var"] = \
+                (1 - momentum) * var + momentum * bvar * cnt / \
+                max(cnt - 1.0, 1.0)
+        mean, var = bmean, bvar
     w, b = P[path + ".weight"], P[path + ".bias"]
     y = (x - mean[:, None, None]) * torch.rsqrt(var + 1e-3)[:, None, None]
     return y * w[:, None, None] + b[:, None, None]
@@ -114,8 +144,11 @@ class BaseBEVBackbone(nn.Module):
         return P, S
 
     def forward(self, P: Params, S: Params, bev: torch.Tensor,
-                prefix: str = "backbone_2d") -> torch.Tensor:
-        """bev [C, H, W] (eval) -> [sum(up_filters), H', W']."""
+                prefix: str = "backbone_2d",
+                updates: Optional[Params] = None) -> torch.Tensor:
+        """bev [C, H, W] (eval) -> [sum(up_filters), H', W']; in training
+        (``updates``, the running-stat updates) bev [B, C, H, W] ->
+        [B, sum(up_filters), H', W']."""
         ups = []
         x = bev
         for li, n in enumerate(self.layer_nums):
@@ -123,12 +156,12 @@ class BaseBEVBackbone(nn.Module):
                 p = f"{prefix}.blocks.{li}.{j}"
                 x = conv2d_same(x, P[p + ".weight"],
                                 self.strides[li] if j == 0 else 1)
-                x = torch.relu(bn2d(P, S, p + ".bn", x))
+                x = torch.relu(bn2d(P, S, p + ".bn", x, updates))
             if li < len(self.up_strides):
                 p, us = f"{prefix}.deblocks.{li}", self.up_strides[li]
                 u = conv_transpose2d_same(x, P[p + ".weight"], us) if us > 1 \
                     else conv2d_same(x, P[p + ".weight"])
-                ups.append(torch.relu(bn2d(P, S, p + ".bn", u)))
+                ups.append(torch.relu(bn2d(P, S, p + ".bn", u, updates)))
         if len(ups) > 1:
-            return torch.cat(ups, dim=0)
+            return torch.cat(ups, dim=-3)
         return ups[0] if ups else x

@@ -1,5 +1,5 @@
-"""Anchor-based BEV head: AnchorHeadSingle (eval), its anchors and box
-coder.
+"""Anchor-based BEV head: AnchorHeadSingle, its anchors, box coder, target
+assigner and loss.
 
 Counterpart of ``cagroup3d_tpu/models/dense_heads/anchor_head.py`` (the
 reference's anchor_head_template.py, anchor_head_single.py,
@@ -11,8 +11,19 @@ flat row i of the predictions is anchor i.  ``generate_predicted_boxes``
 decodes, corrects headings by the direction bin and runs class-agnostic
 rotated NMS.  As in the JAX package the NMS settings come from the head's
 own ``NMS_CONFIG`` (else the top 1024 candidates, score 0.1, IoU 0.01) and
-the output count from ``MAX_OUT`` (512).  The target assigner and the loss
-belong to training.
+the output count from ``MAX_OUT`` (512).
+
+Training (``assign_targets``, ``loss``) is the JAX package's
+AxisAlignedTargetAssigner and anchor loss: per-class rotated-BEV IoU
+matching with each class's matched / unmatched thresholds, a force match
+of each valid GT's best anchor, ``ResidualCoder`` targets, then a focal
+class loss, a smooth-L1 box loss on the sin-difference of the heading and
+a direction-bin cross entropy, each normalized per scene by its positive
+count.  The IoU matrix holds -1 off each anchor's class and for invalid
+GTs, as in the JAX package; of the rest only the pairs whose BEV
+circumscribed circles meet are computed (in blocks of ``BLOCK_PAIRS``),
+every other pair's IoU is exactly 0, so the matrix is the JAX package's
+without its 211,200 x 64 rotated clippings a KITTI scene.
 """
 from __future__ import annotations
 
@@ -24,7 +35,26 @@ import torch
 from torch import nn
 
 from ...core import nms as nms_mod
+from ...core.geometry import rotated_intersection_area
 from ...core.module import Params, register_flat
+from ...utils import loss_utils as L
+
+BLOCK_PAIRS = 1 << 20       # rotated IoU pairs a block of the assigner
+
+
+def bev_iou_pairs(a7: torch.Tensor, b7: torch.Tensor) -> torch.Tensor:
+    """Rotated BEV IoU of paired boxes [N, 7] x [N, 7] -> [N]: the JAX
+    ``bev_iou``'s arithmetic (area floor 1e-6)."""
+    inter = rotated_intersection_area(a7[:, [0, 1, 3, 4, 6]],
+                                      b7[:, [0, 1, 3, 4, 6]])
+    area_a = a7[:, 3] * a7[:, 4]
+    area_b = b7[:, 3] * b7[:, 4]
+    return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
+
+
+def _bev_radius(b7: torch.Tensor) -> torch.Tensor:
+    """Radius of each box's circumscribed circle in BEV."""
+    return 0.5 * torch.sqrt(b7[:, 3] ** 2 + b7[:, 4] ** 2)
 
 
 def limit_period(val: torch.Tensor, offset: float = 0.5,
@@ -145,7 +175,17 @@ class AnchorHeadSingle(nn.Module):
             anchors = np.concatenate([anchors, np.zeros(
                 (len(anchors), self.coder.box_dim - 7), np.float32)], axis=1)
         self.anchors_np = anchors                  # [A, box_dim]
-        self._anchors: Dict = {}                   # per device (no buffer:
+        # per location the anchors' class and match thresholds, tiled
+        ny, nx = grids[0].shape[:2]
+        cls_ids, mt, ut = [], [], []
+        for i, (a, g) in enumerate(zip(self.anchor_cfgs, grids)):
+            cls_ids += [i] * g.shape[2]
+            mt += [float(a["matched_threshold"])] * g.shape[2]
+            ut += [float(a["unmatched_threshold"])] * g.shape[2]
+        self.anchor_cls_np = np.tile(np.asarray(cls_ids, np.int32), ny * nx)
+        self.matched_thr_np = np.tile(np.asarray(mt, np.float32), ny * nx)
+        self.unmatched_thr_np = np.tile(np.asarray(ut, np.float32), ny * nx)
+        self._consts: Dict = {}                    # per device (no buffers:
         # the parameter and state names stay the JAX package's)
         self.n_anchors_per_loc = sum(
             len(a["anchor_sizes"]) * len(a["anchor_rotations"]) *
@@ -155,6 +195,11 @@ class AnchorHeadSingle(nn.Module):
         self.score_thresh = float(nc.get("SCORE_THRESH", 0.1)) if nc else 0.1
         self.nms_thresh = float(nc.get("NMS_THRESH", 0.01)) if nc else 0.01
         self.max_out = int(c.get("MAX_OUT", 512))
+        lw = c.LOSS_CONFIG.LOSS_WEIGHTS
+        self.w_cls = float(lw["cls_weight"])
+        self.w_loc = float(lw["loc_weight"])
+        self.w_dir = float(lw.get("dir_weight", 0.2))
+        self.code_weights = [float(x) for x in lw["code_weights"]]
         P = self._init(generator or torch.Generator().manual_seed(0))
         register_flat(self, P, {})
 
@@ -175,13 +220,15 @@ class AnchorHeadSingle(nn.Module):
 
     def forward(self, P: Params, bev: torch.Tensor,
                 prefix: str = "dense_head") -> Dict:
-        """bev [C, H, W] -> flat per-anchor predictions (row = anchor)."""
-        flat = bev.permute(1, 2, 0).reshape(-1, bev.shape[0])   # [H*W, C]
+        """bev [C, H, W] (or [B, C, H, W]) -> flat per-anchor predictions
+        (row = anchor; [B, A, .] for a batch)."""
+        lead = bev.shape[:-3]
+        flat = bev.movedim(-3, -1).reshape(*lead, -1, bev.shape[-3])
 
         def conv(name, width):
             y = flat @ P[f"{prefix}.{name}.weight"] + \
                 P[f"{prefix}.{name}.bias"]
-            return y.reshape(-1, width)
+            return y.reshape(*lead, -1, width)
 
         out = dict(cls_preds=conv("conv_cls", self.num_class),
                    box_preds=conv("conv_box", self.coder.code_size))
@@ -189,12 +236,110 @@ class AnchorHeadSingle(nn.Module):
             out["dir_cls_preds"] = conv("conv_dir_cls", self.num_dir_bins)
         return out
 
-    def anchors(self, device) -> torch.Tensor:
-        device = torch.device(device)
-        if device not in self._anchors:
-            self._anchors[device] = torch.from_numpy(self.anchors_np).to(
+    def _const(self, name: str, device) -> torch.Tensor:
+        key = (name, torch.device(device))
+        if key not in self._consts:
+            self._consts[key] = torch.from_numpy(getattr(self, name)).to(
                 device)
-        return self._anchors[device]
+        return self._consts[key]
+
+    def anchors(self, device) -> torch.Tensor:
+        return self._const("anchors_np", device)
+
+    # ------------------------------------------------------------------
+    def match_iou(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                  gt_valid: torch.Tensor) -> torch.Tensor:
+        """[A, G] rotated BEV IoU of every anchor with every GT of its own
+        class, -1 elsewhere (other classes, invalid GTs): the JAX
+        assigner's matrix.  Only the pairs whose BEV circumscribed circles
+        meet are clipped; every other same-class pair is 0."""
+        dev = gt_boxes.device
+        anchors = self.anchors(dev)
+        same = (self._const("anchor_cls_np", dev)[:, None] ==
+                gt_labels[None, :]) & gt_valid[None, :]
+        iou = torch.where(same, 0.0, -1.0)
+        reach = _bev_radius(anchors)[:, None] + \
+            _bev_radius(gt_boxes)[None, :] + 1e-3
+        d2 = (anchors[:, None, 0] - gt_boxes[None, :, 0]) ** 2 + \
+            (anchors[:, None, 1] - gt_boxes[None, :, 1]) ** 2
+        ai, gi = torch.nonzero(same & (d2 <= reach * reach), as_tuple=True)
+        for i in range(0, ai.numel(), BLOCK_PAIRS):
+            a, g = ai[i:i + BLOCK_PAIRS], gi[i:i + BLOCK_PAIRS]
+            iou[a, g] = bev_iou_pairs(anchors[a, :7], gt_boxes[g, :7])
+        return iou
+
+    @torch.no_grad()
+    def assign_targets(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                       gt_valid: torch.Tensor):
+        """One scene: (labels i64[A] (-1 ignore, 0 background, 1..K the
+        class), regression targets [A, code], regression weights [A]).
+        Each anchor takes the label and box of its own best GT (the first
+        on ties); a valid GT's best anchor (the first on ties) is positive
+        when that IoU is above 0; where several GTs force one anchor, the
+        last of them decides, as the JAX package's scatter does."""
+        dev = gt_boxes.device
+        anchors = self.anchors(dev)
+        iou = self.match_iou(gt_boxes, gt_labels, gt_valid)
+        best_iou = iou.max(dim=1).values
+        best_gt = torch.argmax(iou, dim=1)
+        gt_best_iou = iou.max(dim=0).values
+        gt_best_anchor = torch.argmax(iou, dim=0)
+        G = gt_boxes.shape[0]
+        last = torch.full((anchors.shape[0],), -1, dtype=torch.long,
+                          device=dev).scatter_reduce(
+            0, gt_best_anchor, torch.arange(G, device=dev), "amax")
+        force = gt_valid & (gt_best_iou > 0)
+        forced = (last >= 0) & force[last.clamp(min=0)]
+        pos = (best_iou >= self._const("matched_thr_np", dev)) | forced
+        neg = best_iou < self._const("unmatched_thr_np", dev)
+        labels = torch.where(pos, gt_labels[best_gt].long() + 1,
+                             torch.where(neg, 0, -1))
+        tgt = self.coder.encode(gt_boxes[best_gt], anchors)
+        tgt = torch.where(pos[:, None], tgt, 0.0)
+        return labels, tgt, pos.to(torch.float32)
+
+    def loss(self, outs: Dict, gt_boxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor):
+        """The batch's anchor loss (outs [B, A, .], GT boxes [B, G, 7],
+        labels [B, G], valid [B, G]): (loss, tb) with the terms
+        ``rpn_loss_cls``, ``rpn_loss_loc``, ``rpn_loss_dir`` and their sum
+        ``rpn_loss``.  The class loss is the JAX package's: the focal sum
+        weighted by 1 / positives per scene, over the element count, over
+        B."""
+        targets = [self.assign_targets(b, l, v)
+                   for b, l, v in zip(gt_boxes, gt_labels, gt_valid)]
+        labels, tgt, reg_w = (torch.stack(t) for t in zip(*targets))
+        B, K = labels.shape[0], self.num_class
+        pos_norm = reg_w.sum(1, keepdim=True).clamp(min=1.0)
+        cls_w = (labels >= 0).to(torch.float32) / pos_norm
+        onehot = torch.nn.functional.one_hot(labels.clamp(0, K), K + 1)[
+            ..., 1:].to(outs["cls_preds"].dtype)
+        cls_loss = L.sigmoid_focal_loss(outs["cls_preds"], onehot,
+                                        weight=cls_w) / B * self.w_cls
+        # sin-difference heading (anchor_head_template.py:117-131)
+        bp, bt = outs["box_preds"], tgt
+        if not self.coder.sincos:
+            sin_p = torch.sin(bp[..., 6:7]) * torch.cos(bt[..., 6:7])
+            sin_t = torch.cos(bp[..., 6:7]) * torch.sin(bt[..., 6:7])
+            bp = torch.cat([bp[..., :6], sin_p, bp[..., 7:]], dim=-1)
+            bt = torch.cat([bt[..., :6], sin_t, bt[..., 7:]], dim=-1)
+        loc = L.weighted_smooth_l1(bp, bt, weights=reg_w / pos_norm,
+                                   code_weights=self.code_weights)
+        loc_loss = loc.sum() / B * self.w_loc
+        total = cls_loss + loc_loss
+        tb = dict(rpn_loss_cls=cls_loss, rpn_loss_loc=loc_loss)
+        if self.use_dir and "dir_cls_preds" in outs:
+            a6 = self.anchors(tgt.device)[None, :, 6]
+            rot_gt = a6 if self.coder.sincos else tgt[..., 6] + a6
+            offs = limit_period(rot_gt - self.dir_offset, 0, 2 * math.pi)
+            dir_t = (offs / (2 * math.pi / self.num_dir_bins)).to(
+                torch.int32).clamp(0, self.num_dir_bins - 1)
+            dl = L.cross_entropy_with_logits(outs["dir_cls_preds"], dir_t)
+            dir_loss = (dl * reg_w / pos_norm).sum() / B * self.w_dir
+            total = total + dir_loss
+            tb["rpn_loss_dir"] = dir_loss
+        tb["rpn_loss"] = total
+        return total, tb
 
     def decoded_boxes(self, outs: Dict):
         """Decode and direction-correct every anchor's box, no NMS:

@@ -42,6 +42,7 @@ tensors and as the reference on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -49,8 +50,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.hashing import (_MARGIN as MARGIN, INVALID_KEY, key_extents,
-                            key_shifts, pack_coords)
+from ..core.hashing import (_MARGIN as MARGIN, INVALID_KEY, key_bits,
+                            key_bits_scope, key_extents, key_shifts,
+                            pack_coords)
 from ..core.kernel_maps import kernel_offsets
 from ..core.sparse import bf16_round, zero_invalid
 from . import build
@@ -390,12 +392,18 @@ def sparse_conv_dw(src_lat: torch.Tensor, src_valid: torch.Tensor,
 
 
 class _SparseConvFn(torch.autograd.Function):
-    """K1 forward; K1 feature backward and K3 weight backward."""
+    """K1 forward; K1 feature backward and K3 weight backward.
+
+    The backward packs keys at the bits its forward packed them at: it
+    runs inside ``loss.backward()``, often after the model's
+    ``key_bits_scope`` has closed (SECOND on KITTI packs at (11, 11, 8)
+    and the defaults are 10/10/10)."""
 
     @staticmethod
     def forward(ctx, src_lat, src_valid, src_feats, w, kernel_size,
                 qry_lat, qry_valid):
         ctx.kernel_size = kernel_size
+        ctx.bits = key_bits()
         ctx.save_for_backward(src_lat, src_valid, src_feats, w, qry_lat,
                               qry_valid)
         return _conv(src_lat, src_valid, src_feats, w, kernel_size, qry_lat,
@@ -408,13 +416,18 @@ class _SparseConvFn(torch.autograd.Function):
         K = ctx.kernel_size
         gout = zero_invalid(gout, src_valid if qry_lat is None else qry_valid)
         dfeats = dw = None
-        if ctx.needs_input_grad[2]:
-            dfeats = sparse_conv_dfeats(src_lat, src_valid, w, K, gout,
-                                        qry_lat, qry_valid
-                                        ).to(src_feats.dtype)
-        if ctx.needs_input_grad[3]:
-            dw = sparse_conv_dw(src_lat, src_valid, src_feats, gout, K,
-                                w.shape[0], qry_lat, qry_valid).to(w.dtype)
+        # a caller that holds the scope at these bits already (a backward
+        # inside the model's forward scope) must not wait on its lock
+        with (contextlib.nullcontext() if key_bits() == ctx.bits
+              else key_bits_scope(ctx.bits)):
+            if ctx.needs_input_grad[2]:
+                dfeats = sparse_conv_dfeats(src_lat, src_valid, w, K, gout,
+                                            qry_lat, qry_valid
+                                            ).to(src_feats.dtype)
+            if ctx.needs_input_grad[3]:
+                dw = sparse_conv_dw(src_lat, src_valid, src_feats, gout, K,
+                                    w.shape[0], qry_lat, qry_valid
+                                    ).to(w.dtype)
         return None, None, dfeats, dw, None, None, None
 
 

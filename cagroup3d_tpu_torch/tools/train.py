@@ -11,6 +11,9 @@ error).  Run from the repository root:
         --cfg_file tools/cfgs/scannet_models/CAGroup3D.yaml \\
         --set DATA_CONFIG.DATA_PATH ../data/scannet
 
+(SECOND on KITTI: ``--cfg_file tools/cfgs/kitti_models/second.yaml`` on a
+tree with its infos and gt database, ``tools/create_infos``; one card.)
+
 and on N cards of one host (each rank takes BATCH_SIZE_PER_GPU scenes a
 step; together they take the step one process would take on N times as
 many):
@@ -109,11 +112,12 @@ def main(args, cfg):
                 f"ranks: {world}")
 
     set_random_seed(0)
-    _, train_loader, _ = build_dataloader(
+    dataset, train_loader, _ = build_dataloader(
         dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
         batch_size=batch_size, logger=logger, training=True, rank=rank,
         world_size=world)
-    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=device)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=device,
+                          dataset=dataset)
     if args.ckpt is not None:
         model.load_jax_params(args.ckpt)
         logger.info(f"loaded {args.ckpt}")

@@ -56,8 +56,13 @@ three warm-up frames: ``wall``; ``stages``, the median ms and the peak GB
 of each stage (vfe, backbone_3d, map_to_bev, backbone_2d, head, boxes:
 decode, top-k and NMS), with ``nms`` the greedy NMS alone inside
 ``boxes`` and ``nms_loop`` its sequential loop (NMS minus its overlap
-matrix); ``device``; ``bits``, the two calls' outputs (eval only, no
-``train`` phase: SECOND's training is not ported).
+matrix); ``device``; ``bits``, the two calls' outputs; then ``train``, the YAML's
+B = 4 training step of the same model (as users build it: the class prior
+not lifted) on synthetic frames with their boxes
+(``chip_smoke.kitti_train_batch``), split as above, and ``train_split``,
+its forward further split into the assigner (the targets of the B
+scenes), the anchor loss without the assigner, and the rest of the
+forward (the VFE, both backbones and the head).
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -392,7 +397,44 @@ def profile_second(args, card, dev, log):
     outs = [model.forward_eval(batches[0]) for _ in range(2)]
     same = same_bits(outs[0], outs[1])
     emit({"phase": "bits", **card, "two_calls_same_bits": same}, log)
+    del model, outs
+    torch.cuda.empty_cache()
+    profile_second_train(args, cfg, card, dev, log)
     return 0 if same else 1
+
+
+def profile_second_train(args, cfg, card, dev, log):
+    """``train`` and ``train_split`` of ``--config kitti_second``."""
+    import torch
+    from chip_smoke import (KITTI_POINTS, STEPS_PER_EPOCH, kitti_train_batch,
+                            second_model)
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    model = second_model(cfg, dev, seed=0, lift=False)
+    opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH,
+                             total_epochs=int(cfg.OPTIMIZATION.NUM_EPOCHS))
+    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tb = [kitti_train_batch(cfg, range(20 + B * i, 20 + B * (i + 1)), dev,
+                            KITTI_POINTS) for i in range(2)]
+    head, inner = model.dense_head, defaultdict(list)
+    head.assign_targets = timed(head.assign_targets, "assigner", inner)
+    head.loss = timed(head.loss, "loss", inner)
+    gen = torch.Generator().manual_seed(0)
+    try:
+        train_phase(lambda b: model.forward_train(b, gen)[0], opt, tb, B,
+                    args.train_steps, card, dev, log)
+    finally:
+        del head.__dict__["assign_targets"], head.__dict__["loss"]
+    # the first call is the warm-up step's, the last the profiled step's
+    steps = [slice(i * B, (i + 1) * B) for i in range(1, args.train_steps +
+                                                       1)]
+    assigner = [sum(inner["assigner"][s]) for s in steps]
+    loss = [inner["loss"][i] - a for i, a in zip(range(1, len(steps) + 1),
+                                                  assigner)]
+    emit({"phase": "train_split", **card, "scenes_per_step": B,
+          "median_ms": {"assigner": statistics.median(assigner),
+                        "loss_without_assigner": statistics.median(loss)},
+          "assigner_ms_per_scene": inner["assigner"][B:B * (
+              args.train_steps + 1)]}, log)
 
 
 def main():

@@ -15,8 +15,8 @@ Function's gradients within 2e-2 of plain autograd through
 import pytest
 import torch
 
-from cagroup3d_tpu_torch.core.hashing import (INVALID_KEY, key_bits_scope,
-                                              pack_coords)
+from cagroup3d_tpu_torch.core.hashing import (INVALID_KEY, key_bits,
+                                              key_bits_scope, pack_coords)
 from cagroup3d_tpu_torch.core.voxelize import spconv_reduce_lat, unique_voxels
 from cagroup3d_tpu_torch.ops.segsum import segment_sums, segment_sums_plain
 from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
@@ -114,8 +114,9 @@ K1_KITTI_CASES = [(4, 16, None, 65536, ""), (16, 16, None, 65536, ""),
                   (64, 64, (1, 1, 0), 16384, ""), (16, 16, None, 4096, "wrap")]
 
 
-@pytest.mark.parametrize("C,Cout,pad,cap,kind", K1_KITTI_CASES)
-def test_sparse_conv_kernel_kitti_bits(dev, C, Cout, pad, cap, kind):
+def _kitti_case(dev, C, Cout, pad, cap, kind):
+    """Source tables (and, with ``pad``, the strided conv's query table)
+    built at (11, 11, 8) in the extent's top corner, and weights."""
     g = torch.Generator().manual_seed(cap + C)
     P = 2 * cap
     span = torch.tensor([120, 120, 41], dtype=torch.int32)
@@ -136,7 +137,14 @@ def test_sparse_conv_kernel_kitti_bits(dev, C, Cout, pad, cap, kind):
             p = torch.tensor(pad, dtype=torch.int32).expand(3)
             q = ((out * 2 - p + 1)[None].to(dev), ok[None].to(dev))
             assert int(ok.sum()) > 0
-        w = torch.randn(1, 27, C, Cout, device=dev) * 0.1
+    w = torch.randn(1, 27, C, Cout, generator=g).to(dev) * 0.1
+    return lat, valid, feats, w, q
+
+
+@pytest.mark.parametrize("C,Cout,pad,cap,kind", K1_KITTI_CASES)
+def test_sparse_conv_kernel_kitti_bits(dev, C, Cout, pad, cap, kind):
+    lat, valid, feats, w, q = _kitti_case(dev, C, Cout, pad, cap, kind)
+    with key_bits_scope((11, 11, 8)):
         before = sparse_conv.launches
         got = sparse_conv(lat, valid, feats, w, 3, *q)
         torch.cuda.synchronize()
@@ -148,6 +156,40 @@ def test_sparse_conv_kernel_kitti_bits(dev, C, Cout, pad, cap, kind):
     assert _rel(got, ref) < 2e-2
     assert _row(got, ref) < 1e-3
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("C,Cout,pad,cap,kind", K1_KITTI_CASES)
+def test_sparse_conv_backward_kitti_bits(dev, C, Cout, pad, cap, kind):
+    """SECOND's training backward at (11, 11, 8): the forward inside the
+    model's scope, ``backward()`` after it has closed (as the training
+    step calls it): K1's feature backward and K3, one launch each, against
+    their plain versions at those bits, and a second backward the same
+    bits."""
+    lat, valid, feats, w, q = _kitti_case(dev, C, Cout, pad, cap, kind)
+    rows = valid if pad is None else q[1]
+    gout = torch.randn(1, rows.shape[1], Cout, device=dev)
+    grads = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        with key_bits_scope((11, 11, 8)):
+            out = sparse_conv(lat, valid, f, ww, 3, *q)
+        k1, k3 = sparse_conv.launches, sparse_conv_dw.launches
+        (out * gout).sum().backward()
+        torch.cuda.synchronize()
+        assert (sparse_conv.launches, sparse_conv_dw.launches) == \
+            (k1 + 1, k3 + 1)
+        grads.append((f.grad, ww.grad))
+    assert key_bits() == (10, 10, 10)
+    g = torch.where(rows[..., None], gout, 0.0)
+    with key_bits_scope((11, 11, 8)):
+        rf = sparse_conv_dfeats_plain(lat, valid, w, 3, g, *q)
+        rw = sparse_conv_dw_plain(lat, valid, feats, g, 3, 1, *q)
+    (gf, gw), (gf2, gw2) = grads
+    assert _rel(gf, rf) < 2e-2 and _row(gf, rf) < 1e-3
+    assert _rel(gw, rw) < 2e-2 and _row(gw, rw) < 1e-3
+    assert torch.equal(gf, gf2) and torch.equal(gw, gw2)
+    assert bool((gf[~valid] == 0).all())
 
 
 @pytest.mark.parametrize("k,G,Gw,C,Cout,query,cap,kind", K1_CASES)

@@ -258,7 +258,8 @@ def test_main_path_sources_are_key_sorted(setup, monkeypatch):
 def test_port_imports_no_jax():
     """The port's tiny eval forward and one tiny training step, ScanNet and
     SUN RGB-D (the yaw path, headed GT boxes), of CAGroup3D and of RBGNet,
-    and SECOND's KITTI eval (a synthetic tree's infos, the loader, a tiny
+    and SECOND's KITTI eval and one training step (a synthetic tree's
+    infos, the eval and the train loader with gt sampling, a tiny
     forward at KITTI's grid, the prediction dicts and the official
     evaluation), run in a process where jax and the JAX package are
     blocked."""
@@ -353,6 +354,18 @@ def test_port_imports_no_jax():
         "names)\n"
         "    ret, table = ds.evaluation(annos, names)\n"
         "    assert 'Car_3d/moderate_R40' in ret, ret\n"
+        "    from cagroup3d_tpu_torch.training.optimization import "
+        "build_optimizer\n"
+        "    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, names, 1, "
+        "training=True)\n"
+        "    m = build_network(mc, len(names), device='cpu', dataset=ds)\n"
+        "    opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 1, "
+        "total_epochs=2)\n"
+        "    b = next(iter(loader))\n"
+        "    loss, tb = make_train_step(m, opt, device='cpu')("
+        "{k: torch.from_numpy(v) for k, v in b.items() if k != 'frame_id'})\n"
+        "    assert bool(torch.isfinite(loss)), tb\n"
+        "    assert float(tb['rpn_loss_loc']) > 0, tb\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")

@@ -202,7 +202,8 @@ def test_augmentor_stage_equal(stage, seed):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["gt_sampling", "random_local_translation",
+@pytest.mark.parametrize("name", ["random_local_rotation",
+                                  "random_local_translation",
                                   "random_world_frustum_dropout"])
 def test_augmentor_unported_stage_raises(name):
     with pytest.raises(NotImplementedError, match=name):
@@ -322,8 +323,8 @@ def test_unported_dataset_and_stage_raise(trees):
         pds.build_dataloader(dc, cfg.CLASS_NAMES, 1, training=False)
     dc = copy.deepcopy(cfg.DATA_CONFIG)
     dc.DATA_AUGMENTOR_TRAIN.AUG_CONFIG_LIST.append(
-        EasyDict(NAME="gt_sampling"))
-    with pytest.raises(NotImplementedError, match="gt_sampling"):
+        EasyDict(NAME="random_local_rotation"))
+    with pytest.raises(NotImplementedError, match="random_local_rotation"):
         pds.build_dataloader(dc, cfg.CLASS_NAMES, 1, training=True)
 
 

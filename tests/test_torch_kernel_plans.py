@@ -15,11 +15,13 @@ full-width SUN RGB-D model (the yaw path) adds its head's shapes: the
 3-vote ``feature_offset`` k3 at Cout 192 (three 64-column tiles for K1, a
 128-column and a half-full 128-column tile for K3) and the per-class k9 and
 k5 convs at 10 classes.  SECOND on KITTI adds its sparse backbone's 7
-distinct eval shapes (11 launches a scene, Cin 4 at the stem).
+distinct eval shapes (11 launches a scene, Cin 4 at the stem) and, in
+training, 7 feature-backward shapes (the strided convs' at coords).
 
 K3 (``spconv_k3_gemm``) reads its plan as a grid of (C tile x Cout tile,
 pair split, group x offset): at the 16 distinct shapes of the 39 K3 calls
-of a training step, the blocks of each (group, split) must cover each
+of a CAGroup3D training step, SUN RGB-D's head and SECOND's 8 (11 calls a
+scene), the blocks of each (group, split) must cover each
 (offset, C, Cout) element of dW once, each split of a pair list its pairs
 once, the splits must fill two waves of the card's SMs
 wherever the list lengths allow it, and the scratch stays under 0.5 GB.
@@ -69,9 +71,19 @@ SECOND_FORWARD = [("g", 1, 65536, 4, 16, 3), ("g", 1, 65536, 16, 16, 3),
                   ("g", 1, 32768, 32, 32, 3), ("g", 1, 16384, 64, 64, 3),
                   ("g", 1, 8192, 64, 64, 3), ("h", 1, 32768, 16, 32, 3),
                   ("h", 1, 16384, 32, 64, 3)]
+# SECOND's training step adds the feature backward of the 7 subm convs
+# after the stem (the VFE's means take no gradient) and, at coords, of the
+# 3 strided convs (the output lattice the source, the input lattice the
+# queries)
+SECOND_FEATURE_BACKWARD = [
+    ("g", 1, 65536, 16, 16, 3), ("g", 1, 32768, 32, 32, 3),
+    ("g", 1, 16384, 64, 64, 3), ("g", 1, 8192, 64, 64, 3),
+    ("h", 1, 65536, 32, 16, 3), ("h", 1, 32768, 64, 32, 3),
+    ("h", 1, 16384, 64, 64, 3)]
 SHAPES = [("fwd",) + s for s in FORWARD + SUNRGBD_FORWARD +
           SECOND_FORWARD] + \
-    [("bwd",) + s for s in FEATURE_BACKWARD + SUNRGBD_FEATURE_BACKWARD]
+    [("bwd",) + s for s in FEATURE_BACKWARD + SUNRGBD_FEATURE_BACKWARD +
+     SECOND_FEATURE_BACKWARD]
 IDS = [f"{d}-{f}-G{G}-NQ{NQ}-{C}x{Cout}-k{K}"
        for d, f, G, NQ, C, Cout, K in SHAPES]
 
@@ -146,7 +158,13 @@ K3_SHAPES = [
     ("f", 1, 32768, 16384, 64, 128, 5, 1),
     # SUN RGB-D's head: feature_offset at Cout 192, 10 classes
     ("c", 1, 32768, 32768, 64, 192, 3, 1),
-    ("d", 10, 4096, 4096, 64, 64, 9, 10), ("e", 10, 2048, 2048, 64, 64, 5, 10)]
+    ("d", 10, 4096, 4096, 64, 64, 9, 10), ("e", 10, 2048, 2048, 64, 64, 5, 10),
+    # SECOND on KITTI: (g) its 8 submanifold k3 convs (Cin 4 at the stem),
+    # (h) its 3 strided convs at coords
+    ("g", 1, 65536, 65536, 4, 16, 3, 1), ("g", 1, 65536, 65536, 16, 16, 3, 1),
+    ("g", 1, 32768, 32768, 32, 32, 3, 1), ("g", 1, 16384, 16384, 64, 64, 3, 1),
+    ("g", 1, 8192, 8192, 64, 64, 3, 1), ("h", 1, 65536, 32768, 16, 32, 3, 1),
+    ("h", 1, 32768, 16384, 32, 64, 3, 1), ("h", 1, 16384, 8192, 64, 64, 3, 1)]
 K3_IDS = [f"{f}-G{G}-N{N}-NQ{NQ}-{C}x{Cout}-k{K}"
           for f, G, N, NQ, C, Cout, K, _ in K3_SHAPES]
 
@@ -181,7 +199,7 @@ def test_k3_plan_covers_every_dw_element_once(shape):
     per_weight = np.bincount(np.arange(G) % Gw, minlength=Gw) * gy
     assert (per_weight == G // Gw * plan.split).all()
     direct = plan.split == 1 and G == Gw
-    _, total, _ = _k3_scratch(G, N, NQ, C, Cout, Gw, K, shape[0] in "bf",
+    _, total, _ = _k3_scratch(G, N, NQ, C, Cout, Gw, K, shape[0] in "bfh",
                               plan.split)
     partials = 4 * plan.split * G * K ** 3 * C * Cout
     assert direct or total >= partials

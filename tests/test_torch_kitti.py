@@ -7,8 +7,10 @@ the JAX ``eval_one_epoch`` on a tiny SECOND, on synthetic KITTI trees
 
 Everything is compared exactly: both packages run the same numpy.
 """
+import copy
 import pickle
 import shutil
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -138,8 +140,47 @@ def test_dataset_batches_match_jax(tree):
     _same(got, ref, "batches")
     assert got[0]["points"].shape == (4, 65536, 4)
     assert got[1]["frame_id"] == ["000004", "000005"]
-    with pytest.raises(NotImplementedError, match="training"):
-        KittiDataset(cfg.DATA_CONFIG, NAMES, training=True)
+    dc = copy.deepcopy(cfg.DATA_CONFIG)
+    dc.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(
+        EasyDict(NAME="random_local_rotation", LOCAL_ROT_ANGLE=0.1))
+    with pytest.raises(NotImplementedError, match="random_local_rotation"):
+        KittiDataset(dc, NAMES, training=True)
+
+
+def test_train_frames_and_batches_match_jax(tree):
+    """KittiDataset(train) from the same ``np.random`` seed as the JAX
+    package's: the augmentor's output (gt sampling over the tree's
+    database, the world flip, rotation and scaling: points, boxes and
+    names), every frame over two passes (the sampler's permutations move
+    on) and the loader's batch, bit for bit; gt sampling pastes boxes."""
+    from cagroup3d_tpu.datasets.augmentor import DataAugmentor as JAug
+    from cagroup3d_tpu_torch.datasets.augmentor import DataAugmentor
+    root = tree[0]
+    cfg, jcfg = _data_cfgs(root)
+    runs = []
+    for aug_cls, ds_cls, c, loader_fn in (
+            (DataAugmentor, KittiDataset, cfg, build_dataloader),
+            (JAug, JKitti, jcfg, jbuild_loader)):
+        np.random.seed(0)
+        ds = ds_cls(c.DATA_CONFIG, NAMES, training=True)
+        info = ds.infos[0]
+        d = dict(points=ds.get_points(info["point_cloud"]["lidar_idx"]),
+                 gt_boxes=np.asarray(info["annos"]["gt_boxes_lidar"],
+                                     np.float32).copy(),
+                 gt_names=info["annos"]["name"][
+                     info["annos"]["name"] != "DontCare"])
+        d["gt_boxes_mask"] = np.isin(d["gt_names"], NAMES)
+        n_gt = len(d["gt_boxes"])
+        out = [aug_cls(root, c.DATA_CONFIG.DATA_AUGMENTOR, NAMES).forward(d)]
+        out += [ds[i] for _ in range(2) for i in range(len(ds))]
+        _, loader, _ = loader_fn(c.DATA_CONFIG, NAMES, 2, training=True)
+        out += list(loader)
+        out.append(np.random.rand(1))
+        runs.append(out)
+    _same(runs[0], runs[1], "train")
+    assert len(runs[0][0]["gt_boxes"]) > n_gt
+    assert runs[0][1]["gt_valid"].sum() > n_gt
+    assert len(runs[0]) == 1 + 4 + 1 + 1
 
 
 def _gt_as_predictions(ds, shift=0.0):
@@ -314,3 +355,120 @@ class _Log:
         pass
 
     warning = info
+
+
+def _jax_train_cli():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "jax_tools_train", "tools/train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_cli_matches_jax_and_resumes(tree, monkeypatch, tmp_path):
+    """The port's ``train`` CLI on second.yaml against the JAX
+    ``tools/train.py`` up to its ``train_model`` call (a recorder in its
+    place; the JAX run with ``--fix_random_seed``, the port's seeds are
+    always fixed): the parsed cfg, the train loader's batch (gt sampling
+    included) and adam_onecycle's lr and momentum over the run.  Then the
+    port CLI trains the tiny SECOND for one epoch and resumes for a second
+    (the optimizer's count and beta1 restored); its checkpoint holds the
+    JAX init's names and shapes (``jax.eval_shape``) and the port's
+    ``test`` CLI evaluates it."""
+    import functools
+    import sys
+    import cagroup3d_tpu.config as jconfig
+    import cagroup3d_tpu.training.train_loop as jloop
+    from cagroup3d_tpu.training.checkpoint import load_checkpoint as jload
+    from cagroup3d_tpu.training.optimization import onecycle_schedules
+    from cagroup3d_tpu_torch.tools import train as tcli
+    from cagroup3d_tpu_torch.training import train_loop
+    root = tree[0]
+    tail = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+    cfg_file = str(Path(CFG).resolve())
+    argv = ["--cfg_file", cfg_file, "--batch_size", "2", "--epochs", "3"] + \
+        tail
+    seen = {}
+    jmod = _jax_train_cli()
+    monkeypatch.setattr(jconfig, "cfg", jconfig.EasyDict())
+    monkeypatch.setattr(sys, "argv", ["train.py", "--fix_random_seed",
+                                      *argv])
+    jargs, jcfg = jmod.parse_config()
+    args, cfg = tcli.parse_config(argv[:6] + ["--device", "cpu"] + tail)
+    assert _same_cfg(cfg, jcfg)
+    for c in (cfg, jcfg):
+        _tiny_second(c.MODEL)
+        c.DATA_CONFIG.POINT_CLOUD_RANGE = c.MODEL.POINT_CLOUD_RANGE
+
+    def jax_train(model, tx, schedule, train_step, params, state, opt_state,
+                  train_loader, total_epochs, ckpt_dir, logger, **kw):
+        seen["jax"] = (list(train_loader), schedule, total_epochs,
+                       jax.tree_util.tree_map(np.shape, (params, state)))
+
+    def port_train(model, optimizer, train_loader, total_epochs, ckpt_dir,
+                   logger, **kw):
+        seen["port"] = (list(train_loader), optimizer, total_epochs)
+
+    monkeypatch.setattr(jmod, "parse_config", lambda: (jargs, jcfg))
+    monkeypatch.setattr(jloop, "train_model", jax_train)
+    monkeypatch.setattr(tcli, "train_model", port_train)
+    monkeypatch.chdir(tmp_path)
+    old = (jhash.XBITS, jhash.YBITS, jhash.ZBITS)
+    jhash.set_key_bits(10, 10, 10)
+    try:
+        jmod.main()
+    finally:
+        jhash.set_key_bits(*old)
+    tcli.main(args, cfg)
+    (jb, jsched, jep, jshapes), (pb, opt, pep) = seen["jax"], seen["port"]
+    assert len(pb) == len(jb) == 1 and pep == jep == 3
+    _same(pb, jb, "batches")
+    assert int(pb[0]["gt_valid"].sum()) > 2 * 24 // 2
+    _, jmom = onecycle_schedules(jcfg.OPTIMIZATION, 3)
+    for t in range(4):
+        assert abs(opt.schedule(t) - float(jsched(t))) <= \
+            1e-6 * float(jsched(t))
+        assert abs(opt.momentum(t) - float(jmom(t))) <= 1e-6
+
+    monkeypatch.setattr(tcli, "train_model", functools.partial(
+        train_loop.train_model, log_interval=1))
+    for epochs in ("1", "2"):
+        a, c = tcli.parse_config(argv[:4] + ["--epochs", epochs, "--device",
+                                             "cpu"] + tail)
+        _tiny_second(c.MODEL)
+        c.DATA_CONFIG.POINT_CLOUD_RANGE = c.MODEL.POINT_CLOUD_RANGE
+        out = tcli.main(a, c)
+    assert hashing.key_bits() == (10, 10, 10)
+    one = _load(out / "ckpt" / "checkpoint_epoch_1.pkl")
+    two = _load(out / "ckpt" / "checkpoint_epoch_2.pkl")
+    assert (one["epoch"], two["epoch"], two["it"]) == (1, 2, 2)
+    assert two["opt_state"]["count"] == 2
+    from cagroup3d_tpu_torch.training.optimization import \
+        onecycle_schedules as port_onecycle
+    # the second step's beta1, of the 2-epoch run's schedule
+    assert two["opt_state"]["opt"]["param_groups"][0]["betas"][0] == \
+        port_onecycle(c.OPTIMIZATION, 2)[1](1)
+    assert any(not np.array_equal(one["params"][k], two["params"][k])
+               for k in one["params"])
+    ck = jload(str(out / "ckpt" / "checkpoint_epoch_2.pkl"))
+    P, S = jshapes
+    for mine, theirs in ((ck["params"], P), (ck["state"], S)):
+        assert {k: v.shape for k, v in mine.items()} == theirs
+    targs, tcfg = cli.parse_config(
+        ["--cfg_file", cfg_file, "--device", "cpu", "--ckpt",
+         str(out / "ckpt" / "checkpoint_epoch_2.pkl")] + tail)
+    _tiny_second(tcfg.MODEL)
+    tcfg.DATA_CONFIG.POINT_CLOUD_RANGE = tcfg.MODEL.POINT_CLOUD_RANGE
+    res = cli.main(targs, tcfg)
+    assert len(res) == 1
+
+
+def _same_cfg(a, b):
+    def plain(d):
+        if isinstance(d, dict):
+            return {k: plain(v) for k, v in d.items()}
+        if isinstance(d, (list, tuple)):
+            return [plain(v) for v in d]
+        return d
+    return plain(a) == plain(b)

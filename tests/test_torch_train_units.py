@@ -53,7 +53,8 @@ from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
                                                  sparse_conv_dw_plain)
 from cagroup3d_tpu_torch.training import checkpoint as pckpt
 from cagroup3d_tpu_torch.training.optimization import (Optimizer,
-                                                       build_lr_schedule)
+                                                       build_lr_schedule,
+                                                       onecycle_schedules)
 from cagroup3d_tpu_torch.utils import loss_utils as L
 from cagroup3d_tpu_torch.utils import synthetic as psyn
 
@@ -441,17 +442,31 @@ def test_proposal_target_layer(case):
 
 # ------------------------------------------------ optimizer and schedule
 @pytest.mark.parametrize("name,warmup", [("adamW", False), ("adamW", True),
-                                         ("adam", False), ("sgd", False)])
+                                         ("adam", False), ("sgd", False),
+                                         ("adam_onecycle", False)])
 def test_optimizer_matches_optax(name, warmup):
+    """Each optimizer's schedule and updates (clipped and unclipped steps,
+    weight decay) against the JAX package's optax chain; adam_onecycle's
+    lr and momentum over a whole run of 3 epochs."""
     cfg = dict(OPTIMIZER=name, LR=0.01, WEIGHT_DECAY=0.01, MOMENTUM=0.9,
                DECAY_STEP_LIST=[1, 2], LR_DECAY=0.1, LR_CLIP=1e-4,
                GRAD_NORM_CLIP=1.0, LR_WARMUP=warmup, WARMUP_EPOCH=1,
-               DIV_FACTOR=10)
-    steps_per_epoch = 3
-    tx, jsched = jopt.build_optimizer(jconfig.EasyDict(cfg), steps_per_epoch)
-    sched = build_lr_schedule(pconfig.EasyDict(cfg), steps_per_epoch)
+               DIV_FACTOR=10, MOMS=[0.95, 0.85], PCT_START=0.4)
+    steps_per_epoch, epochs = 3, 3
+    tx, jsched = jopt.build_optimizer(jconfig.EasyDict(cfg), steps_per_epoch,
+                                      total_epochs=epochs)
+    sched = build_lr_schedule(pconfig.EasyDict(cfg), steps_per_epoch,
+                              total_epochs=epochs)
     for s in range(10):
         assert abs(sched(s) - float(jsched(s))) <= 1e-6 * float(jsched(s))
+    if name == "adam_onecycle":
+        jlr, jmom = jopt.onecycle_schedules(jconfig.EasyDict(cfg),
+                                            steps_per_epoch * epochs)
+        lr, mom = onecycle_schedules(pconfig.EasyDict(cfg),
+                                     steps_per_epoch * epochs)
+        for s in range(steps_per_epoch * epochs + 2):
+            assert abs(lr(s) - float(jlr(jnp.int32(s)))) <= 1e-6 * lr(s)
+            assert abs(mom(s) - float(jmom(jnp.int32(s)))) <= 1e-6
     rs = np.random.RandomState(0)
     params = {"a": rs.randn(4, 3).astype(np.float32),
               "b": rs.randn(5).astype(np.float32)}
@@ -459,7 +474,7 @@ def test_optimizer_matches_optax(name, warmup):
     state = tx.init(jp)
     tp = {k: torch.nn.Parameter(_t(v)) for k, v in params.items()}
     opt = Optimizer(list(tp.values()), pconfig.EasyDict(cfg),
-                    steps_per_epoch)
+                    steps_per_epoch, total_epochs=epochs)
     for i in range(8):
         scale = 5.0 if i % 2 else 0.1            # clipped and unclipped
         g = {k: (rs.randn(*v.shape) * scale).astype(np.float32)
@@ -473,9 +488,9 @@ def test_optimizer_matches_optax(name, warmup):
         opt.step()
     for k in params:
         assert _rel(tp[k], jp[k]) < 1e-6, k
-    with pytest.raises(NotImplementedError, match="outdoor"):
-        build_lr_schedule(pconfig.EasyDict(dict(cfg, OPTIMIZER=
-                                                "adam_onecycle")), 3)
+    with pytest.raises(NotImplementedError, match="rmsprop"):
+        Optimizer(list(tp.values()), pconfig.EasyDict(dict(
+            cfg, OPTIMIZER="rmsprop")), 3)
 
 
 # ------------------------------------------------------------ checkpoints
