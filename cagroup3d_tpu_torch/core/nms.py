@@ -68,12 +68,13 @@ def multiclass_nms(bboxes: torch.Tensor, scores: torch.Tensor,
                    flip_heading_for_iou: bool = True):
     """Per-class NMS (CAGroup3DHead._nms).
 
-    bboxes [P, 7], scores [P, C], valid [P].  Candidates per class: the top
+    bboxes [P, D] (D >= 7: extra columns ride along), scores [P, C],
+    valid [P].  Candidates per class: the top
     ``per_cls_cap`` above ``score_thr``; output: the top ``out_cap`` kept
     detections over all classes.  ``rotated`` uses the rotated BEV IoU;
     with ``flip_heading_for_iou`` its boxes are compared with the heading
     negated, as the reference calls nms_gpu from the head.  Returns (boxes
-    [out_cap, 7], scores [out_cap], labels i64[out_cap], valid
+    [out_cap, D], scores [out_cap], labels i64[out_cap], valid
     [out_cap])."""
     P, C = scores.shape
     cls_scores = scores.T                                        # [C, P]
@@ -82,11 +83,11 @@ def multiclass_nms(bboxes: torch.Tensor, scores: torch.Tensor,
         torch.where(cand, cls_scores, torch.full_like(cls_scores, NEG_INF)),
         per_cls_cap)
     sel_ok = top_s > NEG_INF / 2
-    b = bboxes[idx]                                              # [C, K, 7]
+    b = bboxes[idx]                                              # [C, K, D]
     s = torch.gather(cls_scores, 1, idx)
     b_iou = b
     if rotated and flip_heading_for_iou:
-        b_iou = torch.cat([b[..., :6], -b[..., 6:7]], dim=-1)
+        b_iou = torch.cat([b[..., :6], -b[..., 6:7], b[..., 7:]], dim=-1)
     keep = greedy_nms(b_iou, s, sel_ok, iou_thr, rotated)
     labels = torch.arange(C, device=scores.device)[:, None].expand_as(keep)
     s_flat = s.reshape(-1)
@@ -95,7 +96,8 @@ def multiclass_nms(bboxes: torch.Tensor, scores: torch.Tensor,
         out_cap)
     ok = top > NEG_INF / 2
     zero = torch.zeros((), device=scores.device)
-    out_boxes = torch.where(ok[:, None], b.reshape(-1, 7)[idx2], zero)
+    out_boxes = torch.where(ok[:, None], b.reshape(-1, b.shape[-1])[idx2],
+                            zero)
     out_scores = torch.where(ok, s_flat[idx2], zero)
     out_labels = torch.where(ok, labels.reshape(-1)[idx2],
                              torch.zeros_like(idx2))

@@ -24,6 +24,7 @@ positions, which is what the JAX package's per-scene sums pooled over its
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -41,10 +42,29 @@ def _same_pads(n: int, k: int, s: int):
 
 
 def _batched(fn):
-    """Run ``fn`` on [B, C, H, W]; a [C, H, W] map goes in as B = 1."""
+    """Run ``fn`` on [B, C, H, W]; a [C, H, W] map goes in as B = 1, on
+    PyTorch's own convolution (``_without_cudnn``)."""
     def run(x, *a):
-        return fn(x, *a) if x.dim() == 4 else fn(x[None], *a)[0]
+        with _without_cudnn():
+            return fn(x, *a) if x.dim() == 4 else fn(x[None], *a)[0]
     return run
+
+
+@contextlib.contextmanager
+def _without_cudnn():
+    """The 2-D convs run on PyTorch's im2col + GEMM path (forward and, as
+    autograd records it, backward), not on cuDNN: cuDNN's choice of
+    algorithm depends on the free device memory (with about 20 GB free it
+    takes an FFT algorithm with 17.6 GB of workspace, with less another
+    one) and, when it benchmarks, on timings, so two calls on one input
+    could give other bits."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.enabled
+    cudnn.enabled = False
+    try:
+        yield
+    finally:
+        cudnn.enabled = saved
 
 
 @_batched

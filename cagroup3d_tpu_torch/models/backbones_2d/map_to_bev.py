@@ -1,4 +1,4 @@
-"""Sparse -> dense BEV: HeightCompression.
+"""Sparse -> dense BEV: HeightCompression and PointPillarScatter.
 
 Counterpart of ``HeightCompression`` in
 ``cagroup3d_tpu/models/backbones_2d/map_to_bev.py`` (the reference's
@@ -7,7 +7,9 @@ sparse level is scattered into a dense [D, H, W, C] grid (its rows are
 unique, so the scatter is exact) and z folded into channels.  The channel
 order is the JAX package's, z-major (channel d * C + c), not the
 reference's C-major; the map comes out channels-first, [D*C, H, W], for
-the 2-D convs.
+the 2-D convs.  ``PointPillarScatter`` (the reference's
+pointpillar_scatter.py) scatters the pillars of a one-cell-high lattice
+into a dense [C, H, W] map.
 """
 from __future__ import annotations
 
@@ -50,3 +52,14 @@ class HeightCompression(nn.Module):
                              f"{self.num_bev_features}")
         dense = scatter_dense(st, (D, H, W))               # [D, H, W, C]
         return dense.permute(0, 3, 1, 2).reshape(D * C, H, W)
+
+
+class PointPillarScatter(nn.Module):
+    def __init__(self, model_cfg):
+        super().__init__()
+        self.num_bev_features = int(model_cfg.NUM_BEV_FEATURES)
+
+    def forward(self, st: SparseTensor, grid_xyz) -> torch.Tensor:
+        """grid_xyz: (W, H, 1) of the pillar lattice -> [C, H, W]."""
+        W, H, _ = grid_xyz
+        return scatter_dense(st, (1, H, W))[0].permute(2, 0, 1)

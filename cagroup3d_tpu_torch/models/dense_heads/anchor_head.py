@@ -142,7 +142,76 @@ def generate_anchors(cfgs: List[dict], grid_size, pc_range):
     return out
 
 
-class AnchorHeadSingle(nn.Module):
+class AnchorTargets:
+    """The anchors of a head and their target assigner.  A subclass sets
+    ``anchors_np`` [A, box_dim], ``anchor_cls_np`` (each anchor's class),
+    ``matched_thr_np`` / ``unmatched_thr_np`` (its class's thresholds),
+    ``coder`` and an empty ``_consts``; the arrays go to a device once
+    (no buffers: the parameter and state names stay the JAX package's)."""
+
+    def _const(self, name: str, device) -> torch.Tensor:
+        key = (name, torch.device(device))
+        if key not in self._consts:
+            self._consts[key] = torch.from_numpy(getattr(self, name)).to(
+                device)
+        return self._consts[key]
+
+    def anchors(self, device) -> torch.Tensor:
+        return self._const("anchors_np", device)
+
+    def match_iou(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                  gt_valid: torch.Tensor) -> torch.Tensor:
+        """[A, G] rotated BEV IoU of every anchor with every GT of its own
+        class, -1 elsewhere (other classes, invalid GTs): the JAX
+        assigner's matrix.  Only the pairs whose BEV circumscribed circles
+        meet are clipped; every other same-class pair is 0."""
+        dev = gt_boxes.device
+        anchors = self.anchors(dev)
+        same = (self._const("anchor_cls_np", dev)[:, None] ==
+                gt_labels[None, :]) & gt_valid[None, :]
+        iou = torch.where(same, 0.0, -1.0)
+        reach = _bev_radius(anchors)[:, None] + \
+            _bev_radius(gt_boxes)[None, :] + 1e-3
+        d2 = (anchors[:, None, 0] - gt_boxes[None, :, 0]) ** 2 + \
+            (anchors[:, None, 1] - gt_boxes[None, :, 1]) ** 2
+        ai, gi = torch.nonzero(same & (d2 <= reach * reach), as_tuple=True)
+        for i in range(0, ai.numel(), BLOCK_PAIRS):
+            a, g = ai[i:i + BLOCK_PAIRS], gi[i:i + BLOCK_PAIRS]
+            iou[a, g] = bev_iou_pairs(anchors[a, :7], gt_boxes[g, :7])
+        return iou
+
+    @torch.no_grad()
+    def assign_targets(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                       gt_valid: torch.Tensor):
+        """One scene: (labels i64[A] (-1 ignore, 0 background, 1..K the
+        class), regression targets [A, code], regression weights [A]).
+        Each anchor takes the label and box of its own best GT (the first
+        on ties); a valid GT's best anchor (the first on ties) is positive
+        when that IoU is above 0; where several GTs force one anchor, the
+        last of them decides, as the JAX package's scatter does."""
+        dev = gt_boxes.device
+        anchors = self.anchors(dev)
+        iou = self.match_iou(gt_boxes, gt_labels, gt_valid)
+        best_iou = iou.max(dim=1).values
+        best_gt = torch.argmax(iou, dim=1)
+        gt_best_iou = iou.max(dim=0).values
+        gt_best_anchor = torch.argmax(iou, dim=0)
+        G = gt_boxes.shape[0]
+        last = torch.full((anchors.shape[0],), -1, dtype=torch.long,
+                          device=dev).scatter_reduce(
+            0, gt_best_anchor, torch.arange(G, device=dev), "amax")
+        force = gt_valid & (gt_best_iou > 0)
+        forced = (last >= 0) & force[last.clamp(min=0)]
+        pos = (best_iou >= self._const("matched_thr_np", dev)) | forced
+        neg = best_iou < self._const("unmatched_thr_np", dev)
+        labels = torch.where(pos, gt_labels[best_gt].long() + 1,
+                             torch.where(neg, 0, -1))
+        tgt = self.coder.encode(gt_boxes[best_gt], anchors)
+        tgt = torch.where(pos[:, None], tgt, 0.0)
+        return labels, tgt, pos.to(torch.float32)
+
+
+class AnchorHeadSingle(AnchorTargets, nn.Module):
     """Parameters under the JAX package's names: ``conv_cls.weight``
     [Cin, A*K] and ``.bias``, ``conv_box.*``, ``conv_dir_cls.*`` (A anchors
     a location, K classes)."""
@@ -150,7 +219,9 @@ class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, num_class: int, class_names=None,
                  grid_size=None, point_cloud_range=None,
                  input_channels: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, post_cfg=None):
+        # post_cfg (the model's POST_PROCESSING) is not read: as in the JAX
+        # package, this head's NMS takes its own NMS_CONFIG
         super().__init__()
         c = model_cfg
         self.num_class = num_class
@@ -219,9 +290,11 @@ class AnchorHeadSingle(nn.Module):
         return P
 
     def forward(self, P: Params, bev: torch.Tensor,
-                prefix: str = "dense_head") -> Dict:
+                prefix: str = "dense_head", S: Optional[Params] = None,
+                updates: Optional[Params] = None) -> Dict:
         """bev [C, H, W] (or [B, C, H, W]) -> flat per-anchor predictions
-        (row = anchor; [B, A, .] for a batch)."""
+        (row = anchor; [B, A, .] for a batch).  The head has no BN, so
+        ``S`` and ``updates`` (``AnchorHeadMulti``'s) go unused."""
         lead = bev.shape[:-3]
         flat = bev.movedim(-3, -1).reshape(*lead, -1, bev.shape[-3])
 
@@ -235,68 +308,6 @@ class AnchorHeadSingle(nn.Module):
         if self.use_dir:
             out["dir_cls_preds"] = conv("conv_dir_cls", self.num_dir_bins)
         return out
-
-    def _const(self, name: str, device) -> torch.Tensor:
-        key = (name, torch.device(device))
-        if key not in self._consts:
-            self._consts[key] = torch.from_numpy(getattr(self, name)).to(
-                device)
-        return self._consts[key]
-
-    def anchors(self, device) -> torch.Tensor:
-        return self._const("anchors_np", device)
-
-    # ------------------------------------------------------------------
-    def match_iou(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
-                  gt_valid: torch.Tensor) -> torch.Tensor:
-        """[A, G] rotated BEV IoU of every anchor with every GT of its own
-        class, -1 elsewhere (other classes, invalid GTs): the JAX
-        assigner's matrix.  Only the pairs whose BEV circumscribed circles
-        meet are clipped; every other same-class pair is 0."""
-        dev = gt_boxes.device
-        anchors = self.anchors(dev)
-        same = (self._const("anchor_cls_np", dev)[:, None] ==
-                gt_labels[None, :]) & gt_valid[None, :]
-        iou = torch.where(same, 0.0, -1.0)
-        reach = _bev_radius(anchors)[:, None] + \
-            _bev_radius(gt_boxes)[None, :] + 1e-3
-        d2 = (anchors[:, None, 0] - gt_boxes[None, :, 0]) ** 2 + \
-            (anchors[:, None, 1] - gt_boxes[None, :, 1]) ** 2
-        ai, gi = torch.nonzero(same & (d2 <= reach * reach), as_tuple=True)
-        for i in range(0, ai.numel(), BLOCK_PAIRS):
-            a, g = ai[i:i + BLOCK_PAIRS], gi[i:i + BLOCK_PAIRS]
-            iou[a, g] = bev_iou_pairs(anchors[a, :7], gt_boxes[g, :7])
-        return iou
-
-    @torch.no_grad()
-    def assign_targets(self, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
-                       gt_valid: torch.Tensor):
-        """One scene: (labels i64[A] (-1 ignore, 0 background, 1..K the
-        class), regression targets [A, code], regression weights [A]).
-        Each anchor takes the label and box of its own best GT (the first
-        on ties); a valid GT's best anchor (the first on ties) is positive
-        when that IoU is above 0; where several GTs force one anchor, the
-        last of them decides, as the JAX package's scatter does."""
-        dev = gt_boxes.device
-        anchors = self.anchors(dev)
-        iou = self.match_iou(gt_boxes, gt_labels, gt_valid)
-        best_iou = iou.max(dim=1).values
-        best_gt = torch.argmax(iou, dim=1)
-        gt_best_iou = iou.max(dim=0).values
-        gt_best_anchor = torch.argmax(iou, dim=0)
-        G = gt_boxes.shape[0]
-        last = torch.full((anchors.shape[0],), -1, dtype=torch.long,
-                          device=dev).scatter_reduce(
-            0, gt_best_anchor, torch.arange(G, device=dev), "amax")
-        force = gt_valid & (gt_best_iou > 0)
-        forced = (last >= 0) & force[last.clamp(min=0)]
-        pos = (best_iou >= self._const("matched_thr_np", dev)) | forced
-        neg = best_iou < self._const("unmatched_thr_np", dev)
-        labels = torch.where(pos, gt_labels[best_gt].long() + 1,
-                             torch.where(neg, 0, -1))
-        tgt = self.coder.encode(gt_boxes[best_gt], anchors)
-        tgt = torch.where(pos[:, None], tgt, 0.0)
-        return labels, tgt, pos.to(torch.float32)
 
     def loss(self, outs: Dict, gt_boxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_valid: torch.Tensor):

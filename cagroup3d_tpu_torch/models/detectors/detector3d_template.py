@@ -4,8 +4,11 @@ from its dataset's config.
 
 Counterpart of ``cagroup3d_tpu/models/detectors/detector3d_template.py``
 (the reference's pcdet/models/detectors/detector3d_template.py) for the
-slots the port has: ``vfe``, ``backbone_3d``, ``map_to_bev_module``,
-``backbone_2d`` and ``dense_head``.  Each slot is an ``nn.Module`` whose
+slots the port has: ``vfe``, ``backbone_3d`` (None without a
+``BACKBONE_3D``, as in PointPillar), ``map_to_bev_module``,
+``backbone_2d``, ``dense_head`` and, with a ``ROI_HEAD``, ``roi_head``.
+Channel counts flow from slot to slot, as pcdet's ``model_info_dict``
+passes them.  Each slot is an ``nn.Module`` whose
 parameters carry the JAX package's flat names under the slot's prefix.
 A name the port does not have yet raises ``NotImplementedError``.
 """
@@ -22,16 +25,21 @@ from torch import nn
 from ...core.hashing import _MARGIN
 from ...core.module import load_jax_params
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
-from ..backbones_2d.map_to_bev import HeightCompression
+from ..backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from ..backbones_3d.spconv_backbone import VoxelBackBone8x
-from ..backbones_3d.vfe import MeanVFE
+from ..backbones_3d.vfe import MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.anchor_head_multi import AnchorHeadMulti
+from ..roi_heads.second_head import SECONDHead
 
-VFES = {"MeanVFE": MeanVFE}
+VFES = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE}
 BACKBONES_3D = {"VoxelBackBone8x": VoxelBackBone8x}
-MAPS_TO_BEV = {"HeightCompression": HeightCompression}
+MAPS_TO_BEV = {"HeightCompression": HeightCompression,
+               "PointPillarScatter": PointPillarScatter}
 BACKBONES_2D = {"BaseBEVBackbone": BaseBEVBackbone}
-DENSE_HEADS = {"AnchorHeadSingle": AnchorHeadSingle}
+DENSE_HEADS = {"AnchorHeadSingle": AnchorHeadSingle,
+               "AnchorHeadMulti": AnchorHeadMulti}
+ROI_HEADS = {"SECONDHead": SECONDHead}
 DEFAULT_KEY_BITS = (10, 10, 10)
 VOXEL_PROCESSORS = ("transform_points_to_voxels",
                     "transform_points_to_voxels_placeholder",
@@ -112,22 +120,32 @@ class Detector3DTemplate(nn.Module):
         self.vfe = _registry(VFES, "VFE", vfe_cfg.NAME)(
             vfe_cfg, num_point_features=int(vfe_cfg.get(
                 "NUM_POINT_FEATURES", 4)),
-            max_points_per_voxel=self.max_points_per_voxel())
-        self.backbone_3d = _registry(
-            BACKBONES_3D, "BACKBONE_3D", c.BACKBONE_3D.NAME)(
-            c.BACKBONE_3D, input_channels=self.vfe.num_point_features,
-            grid_size=self.grid_size, generator=gen)
+            max_points_per_voxel=self.max_points_per_voxel(), generator=gen)
+        self.backbone_3d = None
+        if c.get("BACKBONE_3D", None) is not None:
+            self.backbone_3d = _registry(
+                BACKBONES_3D, "BACKBONE_3D", c.BACKBONE_3D.NAME)(
+                c.BACKBONE_3D, input_channels=self.vfe.num_point_features,
+                grid_size=self.grid_size, generator=gen)
         self.map_to_bev_module = _registry(
             MAPS_TO_BEV, "MAP_TO_BEV", c.MAP_TO_BEV.NAME)(c.MAP_TO_BEV)
         self.backbone_2d = _registry(
             BACKBONES_2D, "BACKBONE_2D", c.BACKBONE_2D.NAME)(
-            c.BACKBONE_2D, generator=gen)
+            c.BACKBONE_2D,
+            input_channels=self.map_to_bev_module.num_bev_features,
+            generator=gen)
         self.dense_head = _registry(
             DENSE_HEADS, "DENSE_HEAD", c.DENSE_HEAD.NAME)(
             c.DENSE_HEAD, num_class=self.num_class,
             class_names=self.class_names, grid_size=self.grid_size,
             point_cloud_range=self.point_cloud_range,
-            input_channels=self.backbone_2d.num_bev_features, generator=gen)
+            input_channels=self.backbone_2d.num_bev_features, generator=gen,
+            post_cfg=c.get("POST_PROCESSING", None))
+        if c.get("ROI_HEAD", None) is not None:
+            self.roi_head = _registry(ROI_HEADS, "ROI_HEAD", c.ROI_HEAD.NAME)(
+                c.ROI_HEAD, num_class=self.num_class,
+                input_channels=self.backbone_2d.num_bev_features,
+                generator=gen)
 
     def load_jax_params(self, P, S=None) -> None:
         """``core.module.load_jax_params`` into this model."""

@@ -1,15 +1,19 @@
 """SECOND: MeanVFE -> VoxelBackBone8x -> HeightCompression ->
-BaseBEVBackbone -> AnchorHeadSingle.
+BaseBEVBackbone -> AnchorHeadSingle (or AnchorHeadMulti, SECOND-multihead),
+and PointPillar: PillarVFE -> PointPillarScatter -> BaseBEVBackbone ->
+AnchorHeadSingle, with no sparse backbone.
 
-Counterpart of ``SECONDNet`` in ``cagroup3d_tpu/models/detectors/
-second_net.py`` (the reference's pcdet/models/detectors/second_net.py).
+Counterpart of ``SECONDNet`` and ``PointPillar`` in
+``cagroup3d_tpu/models/detectors/second_net.py`` (the reference's
+pcdet/models/detectors/second_net.py and pointpillar.py).
 The point-cloud range and voxel size come from ``MODEL`` or else from the
 dataset config, and so does the VFE's point cap per voxel (the template).
 The lattice's key bits are widened exactly as the JAX package widens its
 global bits for this grid (KITTI: (11, 11, 8)), but the model keeps them
 and sets them only around its own forward (``hashing.key_bits_scope``),
 so another model built after it in the same process still packs keys at
-the defaults.  ``forward_eval`` runs the batch's scenes one after another.
+the defaults; a lattice that fits the defaults (PointPillar's pillars)
+opens no scope.  ``forward_eval`` runs the batch's scenes one after another.
 
 ``forward_train`` runs each scene's sparse half (VFE, sparse backbone,
 BEV map) in a thread of its own, the threads meeting at every BN through a
@@ -22,6 +26,7 @@ after the scope has closed.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -32,11 +37,13 @@ from ...core.norm import SceneSync
 from ...ops import build
 from ...utils.commu_utils import group_size
 from .cagroup3d import run_scenes
-from .detector3d_template import Detector3DTemplate, key_bits_for
+from .detector3d_template import (DEFAULT_KEY_BITS, Detector3DTemplate,
+                                  key_bits_for)
 
 
 class SECONDNet(Detector3DTemplate):
     READS_DATASET = True
+    DIST_NAME = "SECOND"
 
     def __init__(self, model_cfg, num_class: int,
                  generator: Optional[torch.Generator] = None, dataset=None):
@@ -50,62 +57,99 @@ class SECONDNet(Detector3DTemplate):
                                 model_cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
         self.build_networks(generator or torch.Generator().manual_seed(0))
 
+    def bits_scope(self):
+        """The model's key bits around its forward: a ``key_bits_scope``,
+        or no scope at the default bits."""
+        if tuple(self.key_bits) == DEFAULT_KEY_BITS:
+            return contextlib.nullcontext()
+        return key_bits_scope(self.key_bits)
+
     def final_grid(self):
-        """(W, H, D) of the final sparse level that HeightCompression
-        folds (KITTI: (176, 200, 2))."""
+        """(W, H, D) of the final lattice that the BEV map folds (KITTI's
+        SECOND: (176, 200, 2); pillars: (W, H, 1) of the grid)."""
+        if self.model_cfg.MAP_TO_BEV.NAME == "PointPillarScatter":
+            return (self.grid_size[0], self.grid_size[1], 1)
         return tuple(int(e) for e in self.backbone_3d.final_extent)
 
-    def forward_scene(self, P, S, ctx: Ctx, points, pvalid) -> Dict:
-        """One scene's head outputs (flat per-anchor predictions)."""
-        return self.dense_head(P, self.backbone_2d(
-            P, S, self.bev_map(P, S, ctx, points, pvalid)))
+    def forward_scene(self, P, S, ctx: Ctx, points, pvalid):
+        """One scene's (head outputs, 2-D backbone map [C, H, W])."""
+        bev2d = self.backbone_2d(P, S, self.bev_map(P, S, ctx, points,
+                                                    pvalid))
+        return self.dense_head(P, bev2d, S=S), bev2d
 
     def bev_map(self, P, S, ctx: Ctx, points, pvalid) -> torch.Tensor:
-        """One scene's dense BEV map [D*C, H, W]; keys pack at the model's
-        bits only inside ``key_bits_scope``."""
+        """One scene's dense BEV map [C', H, W]; keys pack at the model's
+        bits only inside ``bits_scope``."""
         st = self.vfe(ctx, points, pvalid, self.voxel_size,
                       self.point_cloud_range, self.input_cap)
-        bb = self.backbone_3d(P, S, ctx, st)
-        return self.map_to_bev_module(bb["encoded_spconv_tensor"],
-                                      self.final_grid())
+        if self.backbone_3d is not None:
+            st = self.backbone_3d(P, S, ctx, st)["encoded_spconv_tensor"]
+        return self.map_to_bev_module(st, self.final_grid())
 
-    def forward_train(self, batch: Dict, generator: torch.Generator,
-                      cur_epoch: float = 0.0, roi_draws=None, group=None):
-        """One training forward over the B scenes of ``batch`` (points
-        [B, P, 3 + F], points_valid, gt_boxes [B, G, 8] with the label
-        last, gt_valid).  SECOND draws no random numbers in its forward, so
-        ``generator`` and ``roi_draws`` (``make_train_step``'s signature)
-        go unused.  Returns (loss, tb_dict, running-stat updates): the tb
-        terms of the anchor loss, ``loss_all`` and each capacity counter
-        summed over the scenes."""
+    def train_maps(self, batch: Dict, generator: torch.Generator,
+                   group=None):
+        """The batch's sparse halves (VFE, sparse backbone, BEV map), each
+        scene in a thread of its own inside the model's bits, BN pooled
+        over the scenes.  Returns (P, S, the scenes' ``Ctx`` (each with a
+        generator seeded from ``generator``), the BEV maps [B, C, H, W])."""
         if group_size(group) > 1:
             raise NotImplementedError(
-                "SECOND with --dist: its BN statistics are not pooled over "
-                "ranks yet (train SECOND on one card)")
+                f"{self.DIST_NAME} with --dist: its BN statistics are not "
+                f"pooled over ranks yet (train {self.DIST_NAME} on one "
+                f"card)")
         P, S = flat_state(self)
         B = batch["points"].shape[0]
         sync = SceneSync(B) if B > 1 else None
-        if batch["points"].is_cuda:
+        if batch["points"].is_cuda and self.backbone_3d is not None:
             build.load("sparse_conv")     # build before the scene threads
-        ctxs = [Ctx(train=True, sync=sync, scene=i) for i in range(B)]
+        seeds = torch.randint(0, 1 << 62, (B,), generator=generator).tolist()
+        ctxs = [Ctx(train=True, generator=torch.Generator().manual_seed(sd),
+                    sync=sync, scene=i) for i, sd in enumerate(seeds)]
 
         def scene(i):
             return self.bev_map(P, S, ctxs[i], batch["points"][i],
                                 batch["points_valid"][i])
 
         # the scene threads pack at the bits this thread has set
-        with key_bits_scope(self.key_bits):
+        with self.bits_scope():
             bevs = run_scenes(scene, B, sync)
+        return P, S, ctxs, torch.stack(bevs)
+
+    def train_heads(self, P, S, ctxs, bev: torch.Tensor, batch: Dict,
+                    roi_draws=None):
+        """The training forward from the BEV maps bev [B, C, H, W] on: the
+        2-D backbone and the head over the batch (BN over all B * H * W
+        positions) and the loss.  Returns (loss, tb, the running-stat
+        updates of every BN, the sparse half's from ``ctxs[0]``)."""
         updates = dict(ctxs[0].updates)
-        bev2d = self.backbone_2d(P, S, torch.stack(bevs), updates=updates)
-        outs = self.dense_head(P, bev2d)
+        bev2d = self.backbone_2d(P, S, bev, updates=updates)
+        outs = self.dense_head(P, bev2d, S=S, updates=updates)
         loss, tb = self.dense_head.loss(
             outs, batch["gt_boxes"][..., :7],
             batch["gt_boxes"][..., 7].to(torch.int64), batch["gt_valid"])
+        return loss, tb, updates
+
+    def forward_train(self, batch: Dict, generator: torch.Generator,
+                      cur_epoch: float = 0.0, roi_draws=None, group=None):
+        """One training forward over the B scenes of ``batch`` (points
+        [B, P, 3 + F], points_valid, gt_boxes [B, G, 8] with the label
+        last, gt_valid): ``train_maps``, then ``train_heads``.
+        ``roi_draws`` overrides the RoI sampling's draws of a model with an
+        RoI head (SECOND and PointPillar draw no random numbers).  Returns
+        (loss, tb_dict, running-stat updates): the loss terms, ``loss_all``
+        and each capacity counter summed over the scenes."""
+        P, S, ctxs, bev = self.train_maps(batch, generator, group)
+        loss, tb, updates = self.train_heads(P, S, ctxs, bev, batch,
+                                             roi_draws)
         for k in ctxs[0].stats:
             tb[k] = sum(c.stats[k] for c in ctxs).float()
         tb["loss_all"] = loss
         return loss, tb, updates
+
+    def predict(self, P, S, ctx: Ctx, out: Dict, bev2d, points, pvalid):
+        """One scene's (boxes, scores, labels i32, valid) from its head
+        outputs."""
+        return self.dense_head.generate_predicted_boxes(out)
 
     @torch.no_grad()
     def forward_eval(self, batch: Dict, cur_epoch=None) -> Dict:
@@ -115,15 +159,21 @@ class SECONDNet(Detector3DTemplate):
         pred_valid, and each scene's dropped-voxel count (overflow)."""
         P, S = flat_state(self)
         outs = []
-        with key_bits_scope(self.key_bits):
+        with self.bits_scope():
             for points, pvalid in zip(batch["points"], batch["points_valid"]):
                 ctx = Ctx()
-                out = self.forward_scene(P, S, ctx, points, pvalid)
-                boxes, scores, labels, valid = \
-                    self.dense_head.generate_predicted_boxes(out)
+                out, bev2d = self.forward_scene(P, S, ctx, points, pvalid)
+                boxes, scores, labels, valid = self.predict(
+                    P, S, ctx, out, bev2d, points, pvalid)
                 overflow = sum(v.sum() for v in ctx.stats.values())
                 outs.append(dict(pred_boxes=boxes, pred_scores=scores,
                                  pred_labels=labels, pred_valid=valid,
                                  overflow=overflow))
         return {k: torch.stack([torch.as_tensor(o[k]) for o in outs])
                 for k in outs[0]}
+
+
+class PointPillar(SECONDNet):
+    """pointpillar.py: SECONDNet's pipeline with PillarVFE and
+    PointPillarScatter in place of the sparse half."""
+    DIST_NAME = "PointPillar"

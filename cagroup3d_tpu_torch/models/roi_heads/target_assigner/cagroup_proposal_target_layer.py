@@ -103,12 +103,15 @@ class ProposalTargetLayer:
         return torch.where(is_fg_slot, fg_idx, bg_idx)
 
     def __call__(self, generator, rois, roi_scores, roi_labels, roi_valid,
-                 gt_boxes, gt_labels, gt_valid, draws=None
-                 ) -> Dict[str, torch.Tensor]:
+                 gt_boxes, gt_labels, gt_valid, draws=None,
+                 flip_gt_heading: bool = True) -> Dict[str, torch.Tensor]:
         """Per scene.  rois [R, 7] (pcdet heading); gt_boxes [G, 7] in the
-        mmdet3d heading, flipped here as in the reference.  ``draws``
-        overrides the generator's (see ``sample``)."""
-        gt_pc = torch.cat([gt_boxes[:, :6], -gt_boxes[:, 6:7]], dim=-1)
+        mmdet3d heading, flipped here as in the reference (CAGroup3D), or
+        with ``flip_gt_heading=False`` already in the pcdet heading (the
+        outdoor models' KITTI boxes).  ``draws`` overrides the generator's
+        (see ``sample``)."""
+        gt_pc = torch.cat([gt_boxes[:, :6], -gt_boxes[:, 6:7]], dim=-1) \
+            if flip_gt_heading else gt_boxes
         max_ov, asg = self.max_iou_with_same_class(
             rois, roi_labels, roi_valid, gt_pc, gt_labels, gt_valid)
         u, rint = draws if draws is not None else \

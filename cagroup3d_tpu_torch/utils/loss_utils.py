@@ -78,6 +78,13 @@ def smooth_l1(pred, target, weight=None, beta=1.0, reduction="mean",
     return loss_weight * loss.sum()
 
 
+def weighted_l1(pred, target, weights=None, code_weights=None):
+    """pcdet WeightedL1Loss: elementwise |diff| with code and anchor
+    weights, no reduction; nan targets ignored."""
+    return weighted_smooth_l1(pred, target, weights, beta=0.0,
+                              code_weights=code_weights)
+
+
 def weighted_smooth_l1(pred, target, weights=None, beta=1.0 / 9.0,
                        code_weights=None):
     """pcdet WeightedSmoothL1Loss: elementwise, no reduction; nan targets

@@ -70,9 +70,10 @@ after it.
    share and whether two direct calls give the same bits
    (``phase_test_cli``).
 7c. train-cli -- the training entry point: a one-batch 100k-point
-   synthetic tree (ScanNet 4 scenes, SUN RGB-D 8) with REPEAT.train 1, the
+   synthetic tree of 4 scenes (CLI_TRAIN_BATCH) with REPEAT.train 1, the
    ``train`` CLI (``cagroup3d_tpu_torch.tools.train``) run in-process at
-   the YAML's full width and batch, with the model as users build it:
+   the YAML's full width and ``--batch_size 4``, with the model as users
+   build it:
    ``--epochs 1`` (one step), then ``--epochs 2``, which resumes
    from ``checkpoint_epoch_1.pkl``; then the ``test`` CLI on
    ``checkpoint_epoch_2.pkl`` over the same tree (mAP printed only).
@@ -187,6 +188,30 @@ second-train-reference -- the tiny SECOND's training step at KITTI's grid
    matrices within 1e-4, the card reading the CPU's).
 second-train-cli -- the ``train`` CLI for an epoch and a resumed second,
    then the ``test`` CLI on ``checkpoint_epoch_2.pkl``.
+Then, on the same train tree, the rest of KITTI's anchor family on
+SECOND's base (``run_zoo_path``; lines tagged ``"config":
+"kitti_pointpillar"``, ``"kitti_second_multihead"``,
+``"kitti_second_iou"``), for each of pointpillar.yaml,
+second_multihead.yaml and second_iou.yaml:
+zoo-requests -- the YAML's full-width model (seeded, prior lifted) with
+   its own dataset config: a warm-up frame records every K1 call (the
+   SECOND variants 11 at (11, 11, 8); PointPillar none), each replayed
+   against its plain version (``k1`` lines); two 120k-point frames at
+   batch 1: ms/scene, peak GB, K1's launches, finite padded outputs, two
+   calls on one frame the same bits.
+zoo-reference -- the tiny model (``tiny_zoo_config``) card against CPU:
+   eval stages on the CPU's inputs (BEV map, 2-D backbone, head, then
+   the prediction on seeded class logits), then one B = 2 training step
+   (the loss within 1e-3, phase 10's gradient bars; the CPU's IoU
+   matrices and, for SECOND-IoU, its proposals handed to the card).
+zoo-train -- one full-width B = 4 ``make_train_step`` step through
+   KittiDataset in train mode with the YAML's DATA_CONFIG: ms/step, peak
+   GB, launches (K1 21 and K3 11 a scene for the SECOND variants), every
+   K1 and K3 call replayed against its plain version (``k3`` lines); the
+   loss finite with a box term, every parameter and buffer moved;
+   SECOND-IoU's training proposals' ms a scene.
+zoo-train-cli -- pointpillar.yaml's ``train`` CLI for an epoch and a
+   resumed second, then its ``test`` CLI (K1 and K3 launch no time).
 second-learn -- the tiny SECOND on a 16 x 16 m grid, one fixed B = 2
    batch, 30 steps: the loss falls at least nine tenths as far as the JAX
    package's (``JAX_LEARN_DROP_SECOND``, ``tests/learn_margin.py
@@ -242,6 +267,9 @@ TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 1, 1, 30
 RBG_TRAIN_STEPS, RBG_LEARN_STEPS = 2, 60
 RBG_LEARN_SEEDS = (11,)                 # rbgnet-learn's fixed batches
 CLI_SCENES = 8
+# phase 7c's batch (SUN RGB-D's YAML asks 8; phase 9 trains at it), cut to
+# keep the whole script under ten minutes
+CLI_TRAIN_BATCH = 4
 NEEDED = ("a_", "b_", "c_", "d_", "e_", "f_")    # the main-path forms
 EVAL_KERNELS = ("sparse_conv", "segsum")        # CAGroup3D's eval launches
 STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
@@ -1594,9 +1622,10 @@ class TrainCliRecording:
              cli.build_network), self.saved = self.saved, None
 
 
-def run_train_cli(tmp, cfg_path, data):
+def run_train_cli(tmp, cfg_path, data, train_args=()):
     """The ``train`` CLI in this process from the directory ``tmp`` with
-    the overrides ``data`` (``--set ...``): ``--epochs 1``, then
+    the overrides ``data`` (``--set ...``) and ``train_args`` (its own
+    flags): ``--epochs 1``, then
     ``--epochs 2``, which resumes, then the ``test`` CLI on
     ``checkpoint_epoch_2.pkl``.  Returns the recording (``rec``), the
     last model the CLI built, both checkpoints, the training logs and
@@ -1618,7 +1647,7 @@ def run_train_cli(tmp, cfg_path, data):
         rec.start()
         for epochs in (1, 2):
             args, cfg = cli.parse_config(["--cfg_file", cfg_path, "--epochs",
-                                          str(epochs), *data])
+                                          str(epochs), *train_args, *data])
             out = cli.main(args, cfg)
         train_launches = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1655,9 +1684,10 @@ def phase_train_cli(dev, gpu, power, path):
     """Phase 7c: the ``train`` CLI (``cagroup3d_tpu_torch.tools.train``) in
     this process on a synthetic tree of one batch of 100k-point scenes
     (``write_indoor_tree``) with REPEAT.train 1, at the YAML's full width
-    and batch and with its model as users build it (seeded, nothing
-    opened or lifted): ``--epochs 1`` (one step: ScanNet 4 scenes, SUN
-    RGB-D 8), then ``--epochs 2``, which must auto-resume from
+    and its batch up to CLI_TRAIN_BATCH, with its model as users build it
+    (seeded, nothing opened or lifted): ``--epochs 1`` (one step of 4
+    scenes; phase 9 trains SUN RGB-D at its YAML's 8), then ``--epochs
+    2``, which must auto-resume from
     ``checkpoint_epoch_1.pkl``; then the ``test`` CLI evaluates
     ``checkpoint_epoch_2.pkl`` over the same tree (its mAP printed, not
     held: the model is untrained).  Held: every step's loss and tb and
@@ -1672,7 +1702,8 @@ def phase_train_cli(dev, gpu, power, path):
     import numpy as np
     from cagroup3d_tpu_torch.utils.synthetic import write_indoor_tree
     names = list(path.cfg.CLASS_NAMES)
-    B = n_scenes = int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    B = n_scenes = min(CLI_TRAIN_BATCH,
+                       int(path.cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU))
     steps_per_epoch = 1
     t_phase, bad = time.time(), []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
@@ -1681,7 +1712,8 @@ def phase_train_cli(dev, gpu, power, path):
                           n_points=N_POINTS, seed=1)
         run = run_train_cli(tmp, path.cfg_path,
                             ["--set", "DATA_CONFIG.DATA_PATH", tree,
-                             "DATA_CONFIG.REPEAT.train", "1"])
+                             "DATA_CONFIG.REPEAT.train", "1"],
+                            train_args=("--batch_size", str(B)))
     rec, model, ckpts, logs, logged = (run[k] for k in (
         "rec", "model", "ckpts", "logs", "metrics"))
     train_launches, eval_launches, ret = (run[k] for k in (
@@ -2193,7 +2225,7 @@ TINY_SECOND = dict(INPUT_CAP=4096,
                    NMS_CONFIG=dict(SCORE_THRESH=0.1, NMS_THRESH=0.01,
                                    NMS_PRE_MAXSIZE=512), MAX_OUT=64)
 # SECOND training on KITTI
-SECOND_TRAIN_STEPS = 2          # timed B = 4 steps after the recorded one
+SECOND_TRAIN_STEPS = 1          # timed B = 4 steps after the recorded one
 SECOND_TRAIN_POINTS = 120_000   # a train frame's points, before sampling
 SECOND_LEARN_STEPS = 30
 # How far the tiny SECOND's loss falls in SECOND_LEARN_STEPS steps on one
@@ -2932,8 +2964,12 @@ def phase_second_train_reference(dev, cfg):
              "card and CPU SECOND training steps disagree")
 
 
-def phase_second_train_cli(dev, gpu, power, cfg, tree):
-    """second-train-cli: the ``train`` CLI in this process on ``tree``
+def phase_second_train_cli(dev, gpu, power, cfg, tree, cfg_path=KITTI_CFG,
+                           tag=KITTI_TAG, phase="second-train-cli",
+                           kernels=True):
+    """second-train-cli (and ``zoo-train-cli`` for another KITTI YAML at
+    ``cfg_path``, ``tag``; without ``kernels`` K1 and K3 must launch no
+    time): the ``train`` CLI in this process on ``tree``
     (one batch of train frames) at the YAML's full width and batch,
     ``--epochs 1`` and then ``--epochs 2``, which must resume from
     ``checkpoint_epoch_1.pkl`` (the optimizer's count restored); then the
@@ -2947,7 +2983,7 @@ def phase_second_train_cli(dev, gpu, power, cfg, tree):
     import numpy as np
     t_phase, bad = time.time(), []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_second_cli_") as tmp:
-        run = run_train_cli(tmp, KITTI_CFG,
+        run = run_train_cli(tmp, cfg_path,
                             ["--set", "DATA_CONFIG.DATA_PATH", tree])
     rec, ckpts, logs, ret = (run[k] for k in ("rec", "ckpts", "logs",
                                               "ret"))
@@ -2964,15 +3000,16 @@ def phase_second_train_cli(dev, gpu, power, cfg, tree):
     if re.search(r"auto-resuming from \S*checkpoint_epoch_1\.pkl "
                  r"\(epoch 1\)", logs) is None:
         bad.append("the second call did not log its resume from epoch 1")
-    if min(train_launches["sparse_conv"], train_launches["sparse_conv_dw"],
-           eval_launches["sparse_conv"]) <= 0:
-        bad.append(f"a kernel was not launched: train {train_launches}, "
-                   f"eval {eval_launches}")
+    launched = (train_launches["sparse_conv"],
+                train_launches["sparse_conv_dw"], eval_launches["sparse_conv"])
+    if (min(launched) <= 0) if kernels else (max(launched) > 0):
+        bad.append(f"K1/K3 launches: train {train_launches}, eval "
+                   f"{eval_launches}")
     if not ret or not all(np.isfinite(float(v)) for v in ret.values()):
         bad.append("the metrics are missing or not finite")
     waits = [w * 1e3 for ld in rec.loaders for w in ld.waits]
     ms = [w + s["ms"] for w, s in zip(waits, rec.steps)]
-    emit({"phase": "second-train-cli", **KITTI_TAG, "ok": not bad,
+    emit({"phase": phase, **tag, "ok": not bad,
           "gpu": gpu, "power_limit": power,
           "batch_size": int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
           "ms_per_step": ms, "loader_share": sum(waits) / sum(ms)
@@ -2983,7 +3020,7 @@ def phase_second_train_cli(dev, gpu, power, cfg, tree):
                                                float("nan"))),
           "seconds": time.time() - t_phase})
     if bad:
-        fail("second-train-cli", "; ".join(bad))
+        fail(phase, "; ".join(bad))
     return train_launches
 
 
@@ -3050,10 +3087,492 @@ def phase_bits_after_second(dev):
         fail("bits", f"CAGroup3D after SECOND packed keys at {set(bits)}")
 
 
+# ---------------------------------------------------------------------------
+# The rest of KITTI's anchor family on SECOND's base: PointPillar (PillarVFE,
+# PointPillarScatter), SECOND-multihead (AnchorHeadMulti) and SECOND-IoU
+# (SECONDHead)
+# ---------------------------------------------------------------------------
+
+ZOO = ("pointpillar", "second_multihead", "second_iou")
+ZOO_CFGS = {n: os.path.join(HERE, "tools", "cfgs", "kitti_models",
+                            f"{n}.yaml") for n in ZOO}
+ZOO_K1_PER_SCENE = {"pointpillar": 0, "second_multihead": 11,
+                    "second_iou": 11}
+ZOO_FRAMES = 2          # timed eval frames a model (the first warms up too)
+ZOO_CLI = "pointpillar"     # the YAML whose train and test CLIs run
+ZOO_TRAIN_FRAME_POINTS = 20_000     # zoo-reference's frames
+
+
+def zoo_tag(name):
+    return {"config": f"kitti_{name}"}
+
+
+def tiny_zoo_config(name, cfg):
+    """The YAML's MODEL at tiny widths on its dataset's range and voxel
+    size (the SECOND variants at TINY_SECOND's widths, so at (11, 11, 8)
+    bits; PointPillar's pillars at 10/10/10)."""
+    if name == "pointpillar":
+        mc = copy.deepcopy(cfg.MODEL)
+        mc.INPUT_CAP = 16384
+        mc.VFE.NUM_FILTERS = [16]
+        mc.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+        mc.BACKBONE_2D.update(LAYER_NUMS=[1, 1, 1], NUM_FILTERS=[16, 32, 32],
+                              NUM_UPSAMPLE_FILTERS=[16, 16, 16])
+        mc.DENSE_HEAD.update(NMS_CONFIG=copy.deepcopy(
+            TINY_SECOND["NMS_CONFIG"]), MAX_OUT=TINY_SECOND["MAX_OUT"])
+        return mc
+    mc = tiny_second_config(cfg)
+    if name == "second_multihead":
+        mc.DENSE_HEAD.SHARED_CONV_NUM_FILTER = 16
+        mc.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 128
+    else:
+        mc.ROI_HEAD.update(SHARED_FC=[32, 32], IOU_FC=[32])
+        mc.ROI_HEAD.ROI_GRID_POOL.IN_CHANNEL = sum(
+            TINY_SECOND["NUM_UPSAMPLE_FILTERS"])
+        mc.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE = 32
+        mc.ROI_HEAD.NMS_CONFIG.TRAIN.update(NMS_PRE_MAXSIZE=256,
+                                            NMS_POST_MAXSIZE=64)
+        mc.ROI_HEAD.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=256,
+                                           NMS_POST_MAXSIZE=32)
+    return mc
+
+
+def zoo_model(name, cfg, dev, seed, tiny=False, lift=True):
+    """A seeded model of the zoo YAML ``name`` through ``build_network``
+    with its dataset config; ``tiny``: ``tiny_zoo_config``; ``lift``: the
+    class prior lifted (biases 0), so the untrained model's candidates
+    pass the score threshold and its NMS sees its full candidate set."""
+    import torch
+    from cagroup3d_tpu_torch.models import build_network
+    from cagroup3d_tpu_torch.models.detectors.detector3d_template import \
+        dataset_meta
+    mc = tiny_zoo_config(name, cfg) if tiny else copy.deepcopy(cfg.MODEL)
+    m = build_network(mc, len(cfg.CLASS_NAMES),
+                      generator=torch.Generator().manual_seed(seed),
+                      device=dev, dataset=dataset_meta(cfg.DATA_CONFIG,
+                                                       cfg.CLASS_NAMES))
+    if lift:
+        with torch.no_grad():
+            for k, p in m.dense_head.named_parameters():
+                if k.endswith(("cls.bias", "cls.out.bias")):
+                    p.zero_()
+    return m
+
+
+def anchor_tables(model):
+    """The model's anchor target assigners: the single head itself, or
+    each sub-head's anchors."""
+    heads = getattr(model.dense_head, "heads", None)
+    return [model.dense_head] if heads is None else \
+        [h["targets"] for h in heads]
+
+
+def phase_zoo_requests(dev, gpu, power, name, cfg):
+    """zoo-requests: the YAML's full-width model (seeded, class prior
+    lifted) with the KITTI dataset config of its YAML.  A warm-up frame
+    records every K1 call (the SECOND variants: 11 a frame at (11, 11,
+    8); PointPillar: none), each replayed against its plain version at
+    the model's bits with phase 4's bars.  Then, launch counters reset,
+    ZOO_FRAMES 120k-point frames at batch 1, the first the warm-up's
+    frame again: ms/frame, the peak GB, K1's launches; the outputs finite
+    and padded alike; the two calls on the first frame the same bits; the
+    key bits back at 10/10/10.  (``profile_port.py --config kitti_<name>``
+    splits a frame by stage.)  Returns (K1 form stats, launches)."""
+    import torch
+    import cagroup3d_tpu_torch.models.backbones_3d.spconv_backbone as sb
+    from cagroup3d_tpu_torch.core import hashing
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.ops.sparse_conv import (sparse_conv,
+                                                     sparse_conv_plain)
+    t_phase, bad, tag = time.time(), [], zoo_tag(name)
+    model = zoo_model(name, cfg, dev, seed=0)
+    reqs = [kitti_request(cfg, seed, dev) for seed in range(ZOO_FRAMES)]
+    calls, bits = [], []
+
+    def rec(*args, **kw):
+        bits.append(hashing.key_bits())
+        calls.append((args, kw))
+        return sparse_conv(*args, **kw)
+
+    core_conv.sparse_conv = sb.sparse_conv = rec
+    try:
+        t0 = time.time()
+        warm = model.forward_eval(reqs[0])
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+    finally:
+        core_conv.sparse_conv = sb.sparse_conv = sparse_conv
+    forms = {}
+    if calls:
+        with hashing.key_bits_scope(model.key_bits):
+            forms = replay(calls, [second_k1_form(*c) for c in calls],
+                           sparse_conv, sparse_conv_plain, k1_info,
+                           library_conv_ms)
+        for form, f in sorted(forms.items()):
+            emit({"phase": "k1", **tag, "form": form, "gpu": gpu,
+                  "power_limit": power, **f})
+        if not all(f["ok"] for f in forms.values()) or len(forms) != 2:
+            bad.append(f"K1 disagrees with its plain version or a form is "
+                       f"missing: {sorted(forms)}")
+    want_bits = {(11, 11, 8)} if ZOO_K1_PER_SCENE[name] else set()
+    if len(calls) != ZOO_K1_PER_SCENE[name] or set(bits) != want_bits:
+        bad.append(f"{len(calls)} K1 calls a frame at bits {set(bits)}")
+
+    launch_counts(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    lat_ms, outs = [], []
+    for r in reqs[:ZOO_FRAMES]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(model.forward_eval(r))
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = {k: tuple(v.shape) for k, v in outs[0].items()}
+    M = shapes["pred_boxes"][1]
+    if shapes != {"pred_boxes": (1, M, 7), "pred_scores": (1, M),
+                  "pred_labels": (1, M), "pred_valid": (1, M),
+                  "overflow": (1,)} or M == 0 or any(
+            {k: tuple(v.shape) for k, v in o.items()} != shapes
+            for o in outs):
+        bad.append(f"bad output shapes {shapes}")
+    if not all(bool(torch.isfinite(v.float()).all()) for o in outs
+               for v in o.values()):
+        bad.append("non-finite outputs")
+    if launches["sparse_conv"] != ZOO_FRAMES * ZOO_K1_PER_SCENE[name] or \
+            launches["segsum"] or launches["sparse_conv_dw"]:
+        bad.append(f"launches {launches}")
+    two_same = all(torch.equal(outs[0][k], warm[k]) for k in warm)
+    if not two_same:
+        bad.append("two forward_eval calls on one frame differ")
+    if hashing.key_bits() != (10, 10, 10):
+        bad.append(f"the global key bits are {hashing.key_bits()}")
+    emit({"phase": "zoo-requests", **tag, "ok": not bad, "gpu": gpu,
+          "power_limit": power, "scenes": ZOO_FRAMES,
+          "points_per_frame": KITTI_POINTS,
+          "points_in_range": [int(r["points_valid"].sum())
+                              for r in reqs[:ZOO_FRAMES]],
+          "key_bits": list(model.key_bits), "grid": list(model.grid_size),
+          "warm_up_seconds": warm_s, "ms_per_scene": lat_ms,
+          "median_ms": sorted(lat_ms)[len(lat_ms) // 2],
+          "peak_memory_gb": peak_gb, "launches": launches,
+          "k1_launches_per_scene": launches["sparse_conv"] / ZOO_FRAMES,
+          "outputs_per_scene": M,
+          "detections": [int(o["pred_valid"].sum()) for o in outs],
+          "overflow": [int(o["overflow"].sum()) for o in outs],
+          "two_calls_same_bits": two_same,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("zoo-requests", f"{name}: " + "; ".join(bad))
+    del model
+    torch.cuda.empty_cache()
+    return forms, launches
+
+
+class Feed:
+    """Hands a model recorded discrete inputs inside the block: each anchor
+    table's IoU matrices (scene by scene) and, with ``props``, the
+    SECOND-IoU proposals (scene by scene), moved to ``dev``."""
+
+    def __init__(self, model, ious, props, dev):
+        self.model, self.ious, self.props, self.dev = model, ious, props, dev
+
+    def __enter__(self):
+        for t, mats in zip(anchor_tables(self.model), self.ious):
+            it = iter(mats)
+            t.match_iou = lambda *a, _it=it: next(_it).to(self.dev)
+        if self.props is not None:
+            it = iter(self.props)
+            self.model.proposals = lambda out, train, _it=it: tuple(
+                x.to(self.dev) for x in next(_it))
+        return self
+
+    def __exit__(self, *exc):
+        for t in anchor_tables(self.model):
+            del t.match_iou
+        if self.props is not None:
+            del self.model.proposals
+
+
+def phase_zoo_reference(dev, name, cfg):
+    """zoo-reference: the tiny model (``tiny_zoo_config``) on the card
+    against the same model on the CPU.  Eval of a 20k-point frame, stage
+    by stage on the CPU's inputs: the BEV map within 2e-2 of its largest magnitude (the SECOND
+    variants' sparse half in bf16 on both sides, as ``second-reference``
+    holds it; PointPillar's f32 pillars within 1e-4), the 2-D backbone and
+    every head output within 1e-3; on the CPU's head outputs with seeded
+    class logits the predictions (SECOND-IoU: proposals, IoU head, score
+    fusion, NMS) with labels and valid masks exact, boxes within 1e-2,
+    scores within 1e-3.  Then one training step (B = 2 frames of 20k
+    points): the assigner's IoU matrices within 1e-4 and the card's step
+    reading the CPU's (ties, see ``second-train-reference``), SECOND-IoU's
+    card step reading the CPU's training proposals (its dropout and RoI
+    sampling draw from CPU generators, the same on both); the loss within
+    1e-3 relative and each module's gradients within phase 10's bars."""
+    import torch
+    from cagroup3d_tpu_torch.core.module import Ctx, flat_state
+    tag = zoo_tag(name)
+    cpu = zoo_model(name, cfg, "cpu", seed=1, tiny=True)
+    gpu_m = copy.deepcopy(cpu).to(dev)
+    req = kitti_request(cfg, 5, "cpu", ZOO_TRAIN_FRAME_POINTS)
+    stages = {}
+    Pc, Sc = flat_state(cpu)
+    Pg, Sg = flat_state(gpu_m)
+    pts, pv = req["points"][0], req["points_valid"][0]
+    with torch.no_grad():
+        with cpu.bits_scope():
+            bev_c = cpu.bev_map(Pc, Sc, Ctx(), pts, pv)
+            bev_g = gpu_m.bev_map(Pg, Sg, Ctx(), pts.to(dev), pv.to(dev))
+        stages["bev"] = rel_err(bev_g.cpu(), bev_c)
+        b2c = cpu.backbone_2d(Pc, Sc, bev_c)
+        b2g = gpu_m.backbone_2d(Pg, Sg, bev_c.to(dev))
+        stages["backbone_2d"] = rel_err(b2g.cpu(), b2c)
+        hc = cpu.dense_head(Pc, b2c, S=Sc)
+        hg = gpu_m.dense_head(Pg, b2c.to(dev), S=Sg)
+        stages["head"] = max(rel_err(hg[k].cpu(), hc[k]) for k in hc)
+        gen = torch.Generator().manual_seed(0)
+        hc = {k: torch.randn(v.shape, generator=gen) * 2
+              if k.startswith("cls_preds") else v for k, v in hc.items()}
+        pc = cpu.predict(Pc, Sc, Ctx(), hc, b2c, pts, pv)
+        pg = gpu_m.predict(Pg, Sg, Ctx(), {k: v.to(dev) for k, v in
+                                           hc.items()}, b2c.to(dev),
+                           pts.to(dev), pv.to(dev))
+    names = ("boxes", "scores", "labels", "valid")
+    stages["predict"] = agree(dict(zip(names, pg)), dict(zip(names, pc)),
+                              ("labels", "valid"), ("boxes",))
+    kept = int(pc[3].sum())
+    eval_ok = stages["bev"] < (1e-4 if name == "pointpillar" else TOL) and \
+        stages["backbone_2d"] < 1e-3 and stages["head"] < 1e-3 and \
+        stages["predict"]["ok"] and kept > 0
+
+    b_cpu = kitti_train_batch(cfg, (5, 6), "cpu", ZOO_TRAIN_FRAME_POINTS)
+    gt, gv = b_cpu["gt_boxes"], b_cpu["gt_valid"]
+    ious = [[t.match_iou(gt[i, :, :7], gt[i, :, 7].long(), gv[i])
+             for i in range(len(gt))] for t in anchor_tables(cpu)]
+    iou_err = max(float((tg.match_iou(
+        gt[i, :, :7].to(dev), gt[i, :, 7].long().to(dev),
+        gv[i].to(dev)).cpu() - ious[j][i]).abs().max())
+        for j, tg in enumerate(anchor_tables(gpu_m)) for i in range(len(gt)))
+    props = None
+    if hasattr(cpu, "proposals"):
+        props, make = [], cpu.proposals
+
+        def recorded(out, train):
+            props.append(tuple(x.detach().clone() for x in make(out, train)))
+            return props[-1]
+    res, pert_m = {}, None
+    for name_, m_, b_ in (("cpu", cpu, b_cpu),
+                          ("gpu", gpu_m, {k: v.to(dev) for k, v in
+                                          b_cpu.items()}),
+                          ("noise", None, b_cpu)):
+        if name_ == "noise":        # the CPU step with weights * (1 + 1e-7)
+            m_ = copy.deepcopy(cpu)
+            with torch.no_grad():
+                for p_ in m_.parameters():
+                    p_.grad = None
+                    p_.mul_(1 + 1e-7)
+            pert_m = m_
+        d = b_["points"].device
+        if name_ == "cpu" and props is not None:
+            cpu.proposals = recorded
+        try:
+            with Feed(m_, ious, None if name_ == "cpu" else props, d):
+                loss, tb, _ = m_.forward_train(
+                    b_, torch.Generator().manual_seed(7))
+        finally:
+            if name_ == "cpu" and props is not None:
+                del cpu.proposals
+        loss.backward()
+        res[name_] = (float(loss.detach()),
+                      {k: float(v.detach()) for k, v in tb.items()})
+    loss_rel = abs(res["gpu"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    prefixes = [p for p in ("vfe.", "backbone_3d.", "backbone_2d.",
+                            "dense_head.", "roi_head.")
+                if any(k.startswith(p) for k, _ in cpu.named_parameters())]
+    reports, grads_ok = held_grads(gpu_m, cpu, pert_m, prefixes)
+    ok = eval_ok and loss_rel < 1e-3 and iou_err < 1e-4 and grads_ok and \
+        res["cpu"][1]["rpn_loss_loc"] > 0
+    emit({"phase": "zoo-reference", **tag, "ok": ok,
+          "key_bits": list(cpu.key_bits), "stages": stages,
+          "detections": kept, "train_scenes": 2, "iou_max_abs": iou_err,
+          "loss_cpu": res["cpu"][0], "loss_gpu": res["gpu"][0],
+          "loss_rel": loss_rel, "tb_cpu": res["cpu"][1],
+          "tb_gpu": res["gpu"][1], "grads": reports})
+    if not ok:
+        fail("zoo-reference", f"card and CPU disagree on the tiny {name}")
+
+
+def phase_zoo_train(dev, gpu, power, name, cfg, tree):
+    """zoo-train: the YAML's full-width model (seeded, as users build it)
+    trained at its BATCH_SIZE_PER_GPU of 4 on the frames of ``tree``
+    through ``KittiDataset`` in train mode with the YAML's DATA_CONFIG.
+    One synchronized ``make_train_step`` step (adam_onecycle), launch
+    counters reset before it: ms/step, the peak GB, the launches
+    (PointPillar: none; the SECOND variants: K1 21 and K3 11 a scene, the
+    stem's features taking no gradient), the loss finite with a box term,
+    every parameter and BN buffer moved.  The step records every K1 call
+    (forward and feature backward) and every K3 call, each replayed after
+    it against its plain version at (11, 11, 8) with phase 8's bars.
+    SECOND-IoU: the ms of each scene's training proposals (the top 9000
+    anchors, NMS at 0.8, 512 kept) inside the step.  Returns (K1 totals,
+    K3 totals, launches); the totals are None without calls."""
+    import numpy as np
+    import torch
+    import cagroup3d_tpu_torch.models.backbones_3d.spconv_backbone as sb
+    import cagroup3d_tpu_torch.ops.sparse_conv as ops_sc
+    from cagroup3d_tpu_torch.core import hashing
+    from cagroup3d_tpu_torch.core import sparse_conv as core_conv
+    from cagroup3d_tpu_torch.datasets import build_dataloader
+    from cagroup3d_tpu_torch.ops.sparse_conv import (
+        sparse_conv, sparse_conv_dfeats, sparse_conv_dfeats_plain,
+        sparse_conv_dw, sparse_conv_dw_plain, sparse_conv_plain)
+    from cagroup3d_tpu_torch.parallel.mesh import make_train_step
+    from cagroup3d_tpu_torch.training.optimization import build_optimizer
+    t_phase, bad, tag = time.time(), [], zoo_tag(name)
+    names = list(cfg.CLASS_NAMES)
+    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    dc = copy.deepcopy(cfg.DATA_CONFIG)
+    dc.DATA_PATH = tree
+    np.random.seed(0)
+    _, loader, _ = build_dataloader(dc, names, B, training=True)
+    nb = next(iter(loader))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()
+             if k != "frame_id"}
+    model = zoo_model(name, cfg, dev, seed=0, lift=False)
+    opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH,
+                             total_epochs=int(cfg.OPTIMIZATION.NUM_EPOCHS))
+    step = make_train_step(model, opt, torch.Generator().manual_seed(0),
+                           device=dev)
+    before = {k_: v.clone() for k_, v in model.state_dict().items()}
+    proposal_ms = []
+    if hasattr(model, "proposals"):
+        make = model.proposals
+
+        def timed_proposals(out, train):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            props = make(out, train)
+            torch.cuda.synchronize()
+            proposal_ms.append((time.perf_counter() - t0) * 1e3)
+            return props
+        model.proposals = timed_proposals
+    fwd_calls, dfe_calls, dw_calls = [], [], []
+    torch.cuda.empty_cache()
+    launch_counts(reset=True)
+    # K3's wrapper bumps the counter of its module name, here the recorder
+    dw_rec = recorder(sparse_conv_dw, dw_calls)
+    core_conv.sparse_conv = sb.sparse_conv = recorder(sparse_conv, fwd_calls)
+    ops_sc.sparse_conv_dfeats = recorder(sparse_conv_dfeats, dfe_calls)
+    ops_sc.sparse_conv_dw = dw_rec
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, tb = step(batch, 0.0)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        core_conv.sparse_conv = sb.sparse_conv = sparse_conv
+        ops_sc.sparse_conv_dfeats = sparse_conv_dfeats
+        ops_sc.sparse_conv_dw = sparse_conv_dw
+        model.__dict__.pop("proposals", None)
+    launches = launch_counts()
+    launches["sparse_conv_dw"] += dw_rec.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tb = {k_: float(v) for k_, v in tb.items()}
+    moved = sum(not torch.equal(v, before[k_])
+                for k_, v in model.state_dict().items())
+    k = ZOO_K1_PER_SCENE[name]
+    per_scene = (len(fwd_calls) / B, len(dfe_calls) / B, len(dw_calls) / B)
+    if per_scene != ((k, k - 1, k) if k else (0, 0, 0)):
+        bad.append(f"K1 forward, K1 backward and K3 calls a scene: "
+                   f"{per_scene}")
+    if launches["sparse_conv"] != B * (2 * k - 1 if k else 0) or \
+            launches["sparse_conv_dw"] != B * k or launches["segsum"]:
+        bad.append(f"launches {launches}")
+    if not np.isfinite([float(loss), *tb.values()]).all() or \
+            not tb["rpn_loss_loc"] > 0:
+        bad.append(f"the loss is not finite or has no box term: {tb}")
+    if moved != len(before):
+        bad.append(f"{len(before) - moved} parameters or buffers unchanged")
+    if hashing.key_bits() != (10, 10, 10):
+        bad.append(f"the global key bits are {hashing.key_bits()}")
+    k1_train = k3_train = None
+    if fwd_calls:
+        with hashing.key_bits_scope(model.key_bits):
+            fwd_stats = replay(fwd_calls, [second_k1_form(*c)
+                                           for c in fwd_calls],
+                               sparse_conv, sparse_conv_plain, k1_info,
+                               library_conv_ms)
+            dfe_stats = replay(dfe_calls, [second_bwd_form(
+                (list(a) + [None] * 7)[5]) for a, _ in dfe_calls],
+                sparse_conv_dfeats, sparse_conv_dfeats_plain, dfeats_info,
+                dfeats_library_ms)
+            dw_stats = replay(dw_calls, [second_bwd_form(
+                (list(a) + [None] * 8)[6]) for a, _ in dw_calls],
+                sparse_conv_dw, sparse_conv_dw_plain, dw_info,
+                library_dw_ms)
+        for kind, st_ in (("k1_train_forward", fwd_stats),
+                          ("k1_feature_backward", dfe_stats),
+                          ("k3_weight_backward", dw_stats)):
+            for form, f in sorted(st_.items()):
+                emit({"phase": "k3", **tag, "kernel": kind, "form": form,
+                      "gpu": gpu, "power_limit": power, **f})
+        if not all(f["ok"] for st_ in (fwd_stats, dfe_stats, dw_stats)
+                   for f in st_.values()) or \
+                not all(len(st_) == 2 for st_ in (fwd_stats, dfe_stats,
+                                                  dw_stats)):
+            bad.append("a training-step kernel call disagrees with its "
+                       "plain version, or a form is missing")
+        k1_train = total({**{"f" + k_: v for k_, v in fwd_stats.items()},
+                          **{"b" + k_: v for k_, v in dfe_stats.items()}})
+        k3_train = total(dw_stats)
+    emit({"phase": "zoo-train", **tag, "ok": not bad, "gpu": gpu,
+          "power_limit": power, "scenes_per_step": B,
+          "points_in_range": batch["points_valid"].sum(1).tolist(),
+          "gt_boxes_per_scene": batch["gt_valid"].sum(1).tolist(),
+          "ms_per_step": step_ms, "peak_memory_gb": peak_gb,
+          "loss": float(loss), "tb": tb, "launches": launches,
+          "calls_per_scene": per_scene,
+          "train_proposals_ms_per_scene": proposal_ms,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("zoo-train", f"{name}: " + "; ".join(bad))
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return k1_train, k3_train, launches
+
+
+def run_zoo_path(dev, gpu, power, tree):
+    """The zoo's phases, model by model (``zoo-requests``,
+    ``zoo-reference``, ``zoo-train``), then the ``train`` and ``test``
+    CLIs of ZOO_CLI's YAML on ``tree`` (``zoo-train-cli``).  Returns what
+    the ``kernels`` line needs."""
+    from cagroup3d_tpu_torch.models import load_config
+    out = {}
+    for name in ZOO:
+        cfg = load_config(ZOO_CFGS[name])
+        forms, launches = phase_zoo_requests(dev, gpu, power, name, cfg)
+        phase_zoo_reference(dev, name, cfg)
+        k1_train, k3_train, train_launches = phase_zoo_train(
+            dev, gpu, power, name, cfg, tree)
+        out[name] = dict(k1_eval=total(forms) if forms else None,
+                         k1_train=k1_train, k3_train=k3_train,
+                         launches=launches, train_launches=train_launches)
+    cfg = load_config(ZOO_CFGS[ZOO_CLI])
+    out[ZOO_CLI]["cli_train_launches"] = phase_second_train_cli(
+        dev, gpu, power, cfg, tree, cfg_path=ZOO_CFGS[ZOO_CLI],
+        tag=zoo_tag(ZOO_CLI), phase="zoo-train-cli",
+        kernels=bool(ZOO_K1_PER_SCENE[ZOO_CLI]))
+    return out
+
+
 def run_kitti_path(dev, gpu, power):
     """The SECOND phases on KITTI (eval, then training on a tree of one
-    batch of train frames), then the CAGroup3D bits check.  Returns what
-    the ``kernels`` line needs."""
+    batch of train frames), the zoo's phases on that tree
+    (``run_zoo_path``), then the CAGroup3D bits check.  Returns what the
+    ``kernels`` line needs."""
     import tempfile
     from cagroup3d_tpu_torch.utils.synthetic import write_kitti_tree
     cfg = kitti_config()
@@ -3070,6 +3589,7 @@ def run_kitti_path(dev, gpu, power):
         phase_second_train_reference(dev, cfg)
         cli_train_launches = phase_second_train_cli(dev, gpu, power, cfg,
                                                     tree)
+        zoo = run_zoo_path(dev, gpu, power, tree)
     phase_second_learn(dev, cfg)
     phase_bits_after_second(dev)
     return dict(k1_eval=k1_eval, k1_train=k1_train, k3_train=k3_train,
@@ -3079,7 +3599,7 @@ def run_kitti_path(dev, gpu, power):
                     sparse_conv_dw=k3_train["max_abs"]),
                 launches=launches, cli_launches=cli_launches,
                 train_launches=train_launches,
-                cli_train_launches=cli_train_launches)
+                cli_train_launches=cli_train_launches, zoo=zoo)
 
 
 # ---------------------------------------------------------------------------
@@ -3101,13 +3621,24 @@ def free_port() -> int:
 def _rank_entry(fn, rank, world, port, timeout_s, args):
     import datetime
     import torch.distributed as dist
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    # the rendezvous store lives in the parent (``run_ranks``): a rank that
+    # hosted it could tear it down while another still talks to it, and
+    # the C++ runtime aborts that rank at exit
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=False,
+                          timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world, timeout=timeout)
     try:
         fn(rank, world, *args)
     finally:
         dist.destroy_process_group()
+    # done: leave without the interpreter's teardown, where gloo's threads
+    # at times abort the process ("terminate called without an active
+    # exception") after its work and results are complete
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run_ranks(fn, args, world=2, timeout_s=DIST_TIMEOUT_S, during=None):
@@ -3116,9 +3647,14 @@ def run_ranks(fn, args, world=2, timeout_s=DIST_TIMEOUT_S, during=None):
     raise after ``timeout_s``; ``during()`` runs here meanwhile and its
     result is returned.  Raises if a rank exits non-zero (the others are
     killed then) or runs ``timeout_s`` + 60 s."""
+    import datetime
     import multiprocessing as mp
+    import torch.distributed as dist
     ctx = mp.get_context("spawn")
     port = free_port()
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=True,
+                          timeout=datetime.timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
     procs = [ctx.Process(target=_rank_entry,
                          args=(fn, r, world, port, timeout_s, args))
              for r in range(world)]
@@ -3138,6 +3674,7 @@ def run_ranks(fn, args, world=2, timeout_s=DIST_TIMEOUT_S, during=None):
             if p.is_alive():
                 p.kill()
             p.join()
+        del store            # after every rank has exited
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
         raise RuntimeError(f"{fn.__name__}: the ranks' exit codes {codes} "
@@ -3535,6 +4072,13 @@ class DistCli:
             bad.append(f"the mAP lines differ: {maps}")
 
 
+def zoo_max_abs(z, counter):
+    """A zoo model's largest replay error of a kernel (0 without calls)."""
+    keys = {"sparse_conv": ("k1_eval", "k1_train"),
+            "sparse_conv_dw": ("k3_train",)}.get(counter, ())
+    return max([z[k]["max_abs"] for k in keys if z[k] is not None] + [0.0])
+
+
 def kernel_line(res, rbg, kitti, dist):
     """The ``kernels`` line: each kernel's launches summed over the paths'
     main-path runs (K1, K3: the timed training steps; K2: the requests)
@@ -3545,7 +4089,11 @@ def kernel_line(res, rbg, kitti, dist):
     SECOND's three requests and its ``test`` CLI run, as
     ``second_train_launches`` and ``second_train_cli_launches``, over
     SECOND's timed B = 4 training steps and its ``train`` CLI's steps,
-    and, as ``dist_launches``, over the dist phase's ranks; its largest
+    as ``zoo_launches``, ``zoo_train_launches`` and
+    ``zoo_train_cli_launches``, over the zoo's eval frames, its timed
+    B = 4 steps and ZOO_CLI's ``train`` CLI (each model's own under
+    ``paths``, ``kitti_<name>``), and, as ``dist_launches``, over the
+    dist phase's ranks; its largest
     error over every replay, and its times from the ScanNet path, with
     each path's own beside them (``kitti_second``: K1's eval calls of one
     frame, and under ``train`` K1's and K3's calls of one B = 4 training
@@ -3587,6 +4135,17 @@ def kernel_line(res, rbg, kitti, dist):
                           train=times(kitti["k1_train"]))
         elif counter == "sparse_conv_dw":
             second.update(train=times(kitti["k3_train"]))
+        zoo = {}
+        for zname, z in kitti["zoo"].items():
+            zoo[f"kitti_{zname}"] = e = {
+                "launches": z["launches"][counter],
+                "train_launches": z["train_launches"][counter]}
+            if "cli_train_launches" in z:
+                e["train_cli_launches"] = z["cli_train_launches"][counter]
+            if counter == "sparse_conv" and z["k1_eval"] is not None:
+                e.update(times(z["k1_eval"]), train=times(z["k1_train"]))
+            elif counter == "sparse_conv_dw" and z["k3_train"] is not None:
+                e.update(train=times(z["k3_train"]))
         out.append({"name": name, "route": "cuda",
                     "source": "cagroup3d_tpu_torch/csrc/" + src,
                     "replaces": "cagroup3d_tpu/ops/" + line,
@@ -3603,9 +4162,16 @@ def kernel_line(res, rbg, kitti, dist):
                     "second_train_cli_launches": kitti[
                         "cli_train_launches"][counter],
                     "dist_launches": dist[counter],
+                    "zoo_launches": sum(v["launches"] for v in zoo.values()),
+                    "zoo_train_launches": sum(v["train_launches"]
+                                              for v in zoo.values()),
+                    "zoo_train_cli_launches": sum(
+                        v.get("train_cli_launches", 0) for v in zoo.values()),
                     "max_abs_err": max([err(r) for r in res.values()] + [
-                        kitti["max_abs"].get(counter, 0.0)]),
-                    "paths": dict(paths, kitti_second=second)})
+                        kitti["max_abs"].get(counter, 0.0)] + [
+                        zoo_max_abs(z, counter)
+                        for z in kitti["zoo"].values()]),
+                    "paths": dict(paths, kitti_second=second, **zoo)})
     return {"kernels": out}
 
 

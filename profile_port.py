@@ -4,7 +4,9 @@
 Run from the repository root on a machine with a CUDA GPU:
 
     python3 profile_port.py [--config scannet|sunrgbd|rbgnet_scannet|
-        rbgnet_sunrgbd|kitti_second] [--scenes 9] [--out profile.json]
+        rbgnet_sunrgbd|kitti_second|kitti_pointpillar|
+        kitti_second_multihead|kitti_second_iou] [--scenes 9]
+        [--out profile.json]
 
 It builds the configuration of ``chip_smoke.py`` (full-width CAGroup3D of
 the ``--config`` YAML -- ScanNet, or SUN RGB-D on headed scenes --,
@@ -63,6 +65,17 @@ not lifted) on synthetic frames with their boxes
 its forward further split into the assigner (the targets of the B
 scenes), the anchor loss without the assigner, and the rest of the
 forward (the VFE, both backbones and the head).
+
+``--config kitti_pointpillar``, ``kitti_second_multihead`` and
+``kitti_second_iou`` profile the other KITTI YAMLs' full-width models of
+``chip_smoke.py``'s ``zoo-requests`` and ``zoo-train`` the same way
+(PointPillar has no ``backbone_3d`` stage).  Their ``boxes`` stage is the
+model's prediction: SECOND-multihead's per-class NMS over its three
+heads; SECOND-IoU's proposals (``proposals`` alone too), IoU head, score
+fusion and final NMS, where ``nms`` sums the scene's two NMS calls.  In
+SECOND-IoU's ``train_split`` the training proposals (the top 9000 anchors
+a scene, NMS at 0.8) are timed per scene, with the NMS alone
+(``proposal_nms_ms_per_scene``); the assigner's ms sum every head's.
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -332,15 +345,26 @@ def profile_rbgnet(args, card, dev, log):
     return log
 
 
+def kitti_model(name, cfg, dev, lift):
+    """The ``--config kitti_<name>`` model of ``chip_smoke.py`` (seeded;
+    ``lift``: the class prior lifted)."""
+    from chip_smoke import second_model, zoo_model
+    if name == "second":
+        return second_model(cfg, dev, seed=0, lift=lift)
+    return zoo_model(name, cfg, dev, seed=0, lift=lift)
+
+
 def profile_second(args, card, dev, log):
-    """The ``--config kitti_second`` phases (module docstring)."""
+    """The ``--config kitti_*`` phases (module docstring)."""
     import torch
-    from chip_smoke import kitti_config, kitti_request, second_model
+    from chip_smoke import ZOO_CFGS, kitti_config, kitti_request
     from cagroup3d_tpu_torch.core import nms as nms_mod
-    from cagroup3d_tpu_torch.core.hashing import key_bits_scope
     from cagroup3d_tpu_torch.core.module import Ctx, flat_state
-    cfg = kitti_config()
-    model = second_model(cfg, dev, seed=0)
+    from cagroup3d_tpu_torch.models import load_config
+    name = args.config[len("kitti_"):]
+    cfg = kitti_config() if name == "second" else load_config(
+        ZOO_CFGS[name])
+    model = kitti_model(name, cfg, dev, lift=True)
     batches = [kitti_request(cfg, s, dev) for s in (0, 1, 2)]
     for b in batches:                                   # warm-up
         model.forward_eval(b)
@@ -363,34 +387,46 @@ def profile_second(args, card, dev, log):
             return out
         return run
 
-    mods = ((model.vfe, "vfe"), (model.backbone_3d, "backbone_3d"),
-            (model.map_to_bev_module, "map_to_bev"),
-            (model.backbone_2d, "backbone_2d"), (model.dense_head, "head"))
+    mods = [(m, n) for m, n in (
+        (model.vfe, "vfe"), (model.backbone_3d, "backbone_3d"),
+        (model.map_to_bev_module, "map_to_bev"),
+        (model.backbone_2d, "backbone_2d"), (model.dense_head, "head"))
+        if m is not None]
     saved = (nms_mod.greedy_nms, nms_mod.overlap_matrix)
-    for mod, name in mods:
-        mod.forward = staged(mod.forward, name)
-    head = model.dense_head
-    head.generate_predicted_boxes = staged(head.generate_predicted_boxes,
-                                           "boxes")
+    for mod, mname in mods:
+        mod.forward = staged(mod.forward, mname)
+    # boxes: decode, top-k and NMS (SECOND-IoU: its proposals, the IoU
+    # head, the score fusion and the final NMS; ``proposals`` alone too)
+    model.predict = staged(model.predict, "boxes")
+    if hasattr(model, "proposals"):
+        model.proposals = staged(model.proposals, "proposals")
     nms_mod.greedy_nms = timed(saved[0], "nms", times)
     nms_mod.overlap_matrix = timed(saved[1], "nms_overlap_matrix", times)
     try:
-        with torch.no_grad(), key_bits_scope(model.key_bits):
+        with torch.no_grad(), model.bits_scope():
             P, S = flat_state(model)
             for i in range(args.scenes):
                 b = batches[i % 3]
-                out = model.forward_scene(P, S, Ctx(), b["points"][0],
-                                          b["points_valid"][0])
-                head.generate_predicted_boxes(out)
+                pts, pv = b["points"][0], b["points_valid"][0]
+                out, bev2d = model.forward_scene(P, S, Ctx(), pts, pv)
+                model.predict(P, S, Ctx(), out, bev2d, pts, pv)
     finally:
         for mod, _ in mods:
             del mod.__dict__["forward"]
-        del head.__dict__["generate_predicted_boxes"]
+        for k in ("predict", "proposals"):
+            model.__dict__.pop(k, None)
         nms_mod.greedy_nms, nms_mod.overlap_matrix = saved
+    # per scene: SECOND-IoU runs two NMS calls a scene (its proposals and
+    # the final one), the others one
+    calls = len(times["nms"]) // args.scenes
+    nms_scene = [sum(times["nms"][i * calls:(i + 1) * calls])
+                 for i in range(args.scenes)]
     med = {k: statistics.median(v) for k, v in times.items()}
-    med["nms_loop"] = med["nms"] - med["nms_overlap_matrix"]
+    med["nms"] = statistics.median(nms_scene)
+    med["nms_loop"] = med["nms"] - calls * med["nms_overlap_matrix"]
     emit({"phase": "stages", **card, "scenes": args.scenes,
-          "median_ms": med, "peak_gb": {k: max(v) for k, v in peaks.items()},
+          "median_ms": med, "nms_calls_per_scene": calls,
+          "peak_gb": {k: max(v) for k, v in peaks.items()},
           "sum_of_stage_medians_ms": sum(med[n] for _, n in mods) +
           med["boxes"], "nms_share_of_wall": med["nms"] / wall_med}, log)
     device_phase(model.forward_eval, batches, wall_med, card, dev, log)
@@ -399,49 +435,77 @@ def profile_second(args, card, dev, log):
     emit({"phase": "bits", **card, "two_calls_same_bits": same}, log)
     del model, outs
     torch.cuda.empty_cache()
-    profile_second_train(args, cfg, card, dev, log)
+    profile_second_train(args, name, cfg, card, dev, log)
     return 0 if same else 1
 
 
-def profile_second_train(args, cfg, card, dev, log):
-    """``train`` and ``train_split`` of ``--config kitti_second``."""
+def profile_second_train(args, name, cfg, card, dev, log):
+    """``train`` and ``train_split`` of ``--config kitti_*``."""
     import torch
-    from chip_smoke import (KITTI_POINTS, STEPS_PER_EPOCH, kitti_train_batch,
-                            second_model)
+    from chip_smoke import (KITTI_POINTS, STEPS_PER_EPOCH, anchor_tables,
+                            kitti_train_batch)
+    from cagroup3d_tpu_torch.core import nms as nms_mod
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
-    model = second_model(cfg, dev, seed=0, lift=False)
+    model = kitti_model(name, cfg, dev, lift=False)
     opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH,
                              total_epochs=int(cfg.OPTIMIZATION.NUM_EPOCHS))
     B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     tb = [kitti_train_batch(cfg, range(20 + B * i, 20 + B * (i + 1)), dev,
                             KITTI_POINTS) for i in range(2)]
     head, inner = model.dense_head, defaultdict(list)
-    head.assign_targets = timed(head.assign_targets, "assigner", inner)
+    tables = anchor_tables(model)
+    for t in tables:
+        t.assign_targets = timed(t.assign_targets, "assigner", inner)
     head.loss = timed(head.loss, "loss", inner)
+    saved_nms = nms_mod.greedy_nms
+    if hasattr(model, "proposals"):
+        # SECOND-IoU's training proposals: the top 9000 anchors a scene
+        # through the greedy NMS
+        model.proposals = timed(model.proposals, "proposals", inner)
+        nms_mod.greedy_nms = timed(saved_nms, "proposal_nms", inner)
     gen = torch.Generator().manual_seed(0)
     try:
         train_phase(lambda b: model.forward_train(b, gen)[0], opt, tb, B,
                     args.train_steps, card, dev, log)
     finally:
-        del head.__dict__["assign_targets"], head.__dict__["loss"]
-    # the first call is the warm-up step's, the last the profiled step's
-    steps = [slice(i * B, (i + 1) * B) for i in range(1, args.train_steps +
+        for t in tables:
+            t.__dict__.pop("assign_targets", None)
+        del head.__dict__["loss"]
+        model.__dict__.pop("proposals", None)
+        nms_mod.greedy_nms = saved_nms
+    # the first calls are the warm-up step's, the last the profiled step's
+    n = len(tables) * B
+    steps = [slice(i * n, (i + 1) * n) for i in range(1, args.train_steps +
                                                        1)]
     assigner = [sum(inner["assigner"][s]) for s in steps]
     loss = [inner["loss"][i] - a for i, a in zip(range(1, len(steps) + 1),
                                                   assigner)]
+    med = {"assigner": statistics.median(assigner),
+           "loss_without_assigner": statistics.median(loss)}
+    extra = {}
+    if "proposals" in inner:
+        per = [inner[k][B:B * (args.train_steps + 1)]
+               for k in ("proposals", "proposal_nms")]
+        med["proposals_per_step"] = statistics.median(
+            sum(per[0][i * B:(i + 1) * B]) for i in range(args.train_steps))
+        extra = {"proposals_ms_per_scene": per[0],
+                 "proposal_nms_ms_per_scene": per[1]}
+    # a step's assigner calls run head by head, scene by scene
+    per_scene = [sum(inner["assigner"][s.start + h * B + j]
+                     for h in range(len(tables)))
+                 for s in steps for j in range(B)]
     emit({"phase": "train_split", **card, "scenes_per_step": B,
-          "median_ms": {"assigner": statistics.median(assigner),
-                        "loss_without_assigner": statistics.median(loss)},
-          "assigner_ms_per_scene": inner["assigner"][B:B * (
-              args.train_steps + 1)]}, log)
+          "median_ms": med, "assigner_ms_per_scene": per_scene, **extra},
+         log)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("scannet", "sunrgbd",
                                          "rbgnet_scannet", "rbgnet_sunrgbd",
-                                         "kitti_second"),
+                                         "kitti_second", "kitti_pointpillar",
+                                         "kitti_second_multihead",
+                                         "kitti_second_iou"),
                     default="scannet")
     ap.add_argument("--scenes", type=int, default=9)
     ap.add_argument("--train-steps", type=int, default=3)
@@ -476,7 +540,7 @@ def main():
         card["config"] = args.config
         profile_rbgnet(args, card, dev, log)
         return write(log, args.out)
-    if args.config == "kitti_second":
+    if args.config.startswith("kitti_"):
         card["config"] = args.config
         rc = profile_second(args, card, dev, log)
         write(log, args.out)

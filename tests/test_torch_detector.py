@@ -258,11 +258,13 @@ def test_main_path_sources_are_key_sorted(setup, monkeypatch):
 def test_port_imports_no_jax():
     """The port's tiny eval forward and one tiny training step, ScanNet and
     SUN RGB-D (the yaw path, headed GT boxes), of CAGroup3D and of RBGNet,
-    and SECOND's KITTI eval and one training step (a synthetic tree's
+    SECOND's KITTI eval and one training step (a synthetic tree's
     infos, the eval and the train loader with gt sampling, a tiny
     forward at KITTI's grid, the prediction dicts and the official
-    evaluation), run in a process where jax and the JAX package are
-    blocked."""
+    evaluation), and the tiny PointPillar, SECOND-multihead and
+    SECOND-IoU of their YAMLs (``chip_smoke.tiny_zoo_config``: an eval
+    forward and one training step each), run in a process where jax and
+    the JAX package are blocked."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['cagroup3d_tpu'] = None\n"
@@ -366,6 +368,22 @@ def test_port_imports_no_jax():
         "{k: torch.from_numpy(v) for k, v in b.items() if k != 'frame_id'})\n"
         "    assert bool(torch.isfinite(loss)), tb\n"
         "    assert float(tb['rpn_loss_loc']) > 0, tb\n"
+        "from chip_smoke import ZOO, ZOO_CFGS, kitti_request, "
+        "kitti_train_batch, tiny_zoo_config, zoo_model\n"
+        "for name in ZOO:\n"
+        "    cfg = load_config(ZOO_CFGS[name])\n"
+        "    m = zoo_model(name, cfg, 'cpu', seed=0, tiny=True)\n"
+        "    out = m.forward_eval(kitti_request(cfg, 0, 'cpu', "
+        "n_points=20000))\n"
+        "    assert torch.isfinite(out['pred_boxes']).all()\n"
+        "    assert int(out['pred_valid'].sum()) > 0, name\n"
+        "    opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 1, "
+        "total_epochs=2)\n"
+        "    loss, tb = make_train_step(m, opt, device='cpu')("
+        "kitti_train_batch(cfg, (1,), 'cpu', 20000))\n"
+        "    assert bool(torch.isfinite(loss)), tb\n"
+        "    assert float(tb['rpn_loss_loc']) > 0, tb\n"
+        "    assert ('rcnn_loss_iou' in tb) == (name == 'second_iou'), tb\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")
