@@ -128,14 +128,25 @@ class SceneSync:
     over the ranks' sums (``RankSum``; the thread of scene 0 issues it).
     A failing scene ``abort()``s the barrier, so the others raise instead
     of waiting forever, and the cross-rank sum, so this rank issues no
-    further collective.  ``attach(loss)``: see ``RankSum.attach``."""
+    further collective.  ``attach(loss)``: see ``RankSum.attach``.
+    ``ranks`` shares another sync's cross-rank sum (``batch_sync``)."""
 
-    def __init__(self, n_scenes: int, group=None):
+    def __init__(self, n_scenes: int, group=None,
+                 ranks: Optional[RankSum] = None):
         self.n = n_scenes
         self._barrier = threading.Barrier(n_scenes)
         self._slots = [None] * n_scenes
         self._out = None
-        self.ranks = RankSum(group) if group_size(group) > 1 else None
+        self.ranks = ranks if ranks is not None else \
+            RankSum(group) if group_size(group) > 1 else None
+
+    def batch_sync(self) -> Optional["SceneSync"]:
+        """For the stages that the calling thread runs over the whole batch
+        after the scene threads (their BN sums already taken over the B
+        scenes): a one-scene sync on this step's cross-rank sum, which
+        numbers its sync points on from the scene threads' ones; None
+        without ranks (nothing is left to pool)."""
+        return None if self.ranks is None else SceneSync(1, ranks=self.ranks)
 
     def allreduce(self, i: int, tensors):
         self._slots[i] = tuple(tensors)

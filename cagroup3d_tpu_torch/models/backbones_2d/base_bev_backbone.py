@@ -20,7 +20,8 @@ padding:
 In training the B scenes' maps go through as one [B, C, H, W] batch; each
 BN (momentum 0.01) normalizes with the statistics of all B * H * W
 positions, which is what the JAX package's per-scene sums pooled over its
-``scene`` axis give, and records its running-stat update.
+``scene`` axis give, and records its running-stat update; with ``--dist``
+the statistics are pooled over the ranks' scenes too (``bn2d``).
 """
 from __future__ import annotations
 
@@ -105,24 +106,34 @@ def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor, stride: int):
 
 
 def bn2d(P: Params, S: Params, path: str, x: torch.Tensor,
-         updates: Optional[Params] = None) -> torch.Tensor:
+         updates: Optional[Params] = None, sync=None) -> torch.Tensor:
     """BN of x [C, H, W] (eps 1e-3), ``core/norm.masked_batch_norm``'s
     arithmetic: with the running statistics, or with ``updates`` (training,
     x [B, C, H, W]) with the batch statistics of all B * H * W positions,
     recording the new running statistics there (momentum 0.01; biased
-    variance in the normalizer, unbiased in the buffer)."""
+    variance in the normalizer, unbiased in the buffer).  Each scene's sums
+    are taken over its own [C, H, W] and added in scene order, so that W
+    ranks of one scene add what one process of W scenes adds; with a
+    ``sync`` (``SceneSync.batch_sync``) the count and sums are then pooled
+    over the ranks, as the JAX package's psum over its sharded scene axis
+    pools them."""
     momentum = 0.01
     mean, var = S[path + ".running_mean"], S[path + ".running_var"]
     if updates is not None:
-        cnt = float(x.shape[0] * x.shape[2] * x.shape[3])
-        bmean = x.sum((0, 2, 3)) / cnt
-        bvar = ((x * x).sum((0, 2, 3)) / cnt - bmean * bmean).clamp(min=0.0)
+        per = [(xi.sum((1, 2)), (xi * xi).sum((1, 2))) for xi in x]
+        s, ss = (sum(t[1:], t[0]) for t in zip(*per))
+        cnt = torch.tensor(float(x.shape[0] * x.shape[2] * x.shape[3]),
+                           dtype=x.dtype, device=x.device)
+        if sync is not None:
+            cnt, s, ss = sync.allreduce(0, (cnt, s, ss))
+        bmean = s / cnt
+        bvar = (ss / cnt - bmean * bmean).clamp(min=0.0)
         with torch.no_grad():
             updates[path + ".running_mean"] = \
                 (1 - momentum) * mean + momentum * bmean
             updates[path + ".running_var"] = \
                 (1 - momentum) * var + momentum * bvar * cnt / \
-                max(cnt - 1.0, 1.0)
+                (cnt - 1.0).clamp(min=1.0)
         mean, var = bmean, bvar
     w, b = P[path + ".weight"], P[path + ".bias"]
     y = (x - mean[:, None, None]) * torch.rsqrt(var + 1e-3)[:, None, None]
@@ -165,10 +176,11 @@ class BaseBEVBackbone(nn.Module):
 
     def forward(self, P: Params, S: Params, bev: torch.Tensor,
                 prefix: str = "backbone_2d",
-                updates: Optional[Params] = None) -> torch.Tensor:
+                updates: Optional[Params] = None, sync=None) -> torch.Tensor:
         """bev [C, H, W] (eval) -> [sum(up_filters), H', W']; in training
         (``updates``, the running-stat updates) bev [B, C, H, W] ->
-        [B, sum(up_filters), H', W']."""
+        [B, sum(up_filters), H', W'], BN pooled over the ranks with a
+        ``sync`` (``bn2d``)."""
         ups = []
         x = bev
         for li, n in enumerate(self.layer_nums):
@@ -176,12 +188,13 @@ class BaseBEVBackbone(nn.Module):
                 p = f"{prefix}.blocks.{li}.{j}"
                 x = conv2d_same(x, P[p + ".weight"],
                                 self.strides[li] if j == 0 else 1)
-                x = torch.relu(bn2d(P, S, p + ".bn", x, updates))
+                x = torch.relu(bn2d(P, S, p + ".bn", x, updates, sync))
             if li < len(self.up_strides):
                 p, us = f"{prefix}.deblocks.{li}", self.up_strides[li]
                 u = conv_transpose2d_same(x, P[p + ".weight"], us) if us > 1 \
                     else conv2d_same(x, P[p + ".weight"])
-                ups.append(torch.relu(bn2d(P, S, p + ".bn", u, updates)))
+                ups.append(torch.relu(bn2d(P, S, p + ".bn", u, updates,
+                                           sync)))
         if len(ups) > 1:
             return torch.cat(ups, dim=-3)
         return ups[0] if ups else x

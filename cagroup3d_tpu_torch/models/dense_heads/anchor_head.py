@@ -38,6 +38,7 @@ from ...core import nms as nms_mod
 from ...core.geometry import rotated_intersection_area
 from ...core.module import Params, register_flat
 from ...utils import loss_utils as L
+from ...utils.commu_utils import group_size
 
 BLOCK_PAIRS = 1 << 20       # rotated IoU pairs a block of the assigner
 
@@ -291,10 +292,11 @@ class AnchorHeadSingle(AnchorTargets, nn.Module):
 
     def forward(self, P: Params, bev: torch.Tensor,
                 prefix: str = "dense_head", S: Optional[Params] = None,
-                updates: Optional[Params] = None) -> Dict:
+                updates: Optional[Params] = None, sync=None) -> Dict:
         """bev [C, H, W] (or [B, C, H, W]) -> flat per-anchor predictions
         (row = anchor; [B, A, .] for a batch).  The head has no BN, so
-        ``S`` and ``updates`` (``AnchorHeadMulti``'s) go unused."""
+        ``S``, ``updates`` and ``sync`` (``AnchorHeadMulti``'s) go
+        unused."""
         lead = bev.shape[:-3]
         flat = bev.movedim(-3, -1).reshape(*lead, -1, bev.shape[-3])
 
@@ -310,13 +312,17 @@ class AnchorHeadSingle(AnchorTargets, nn.Module):
         return out
 
     def loss(self, outs: Dict, gt_boxes: torch.Tensor,
-             gt_labels: torch.Tensor, gt_valid: torch.Tensor):
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor, group=None):
         """The batch's anchor loss (outs [B, A, .], GT boxes [B, G, 7],
         labels [B, G], valid [B, G]): (loss, tb) with the terms
         ``rpn_loss_cls``, ``rpn_loss_loc``, ``rpn_loss_dir`` and their sum
         ``rpn_loss``.  The class loss is the JAX package's: the focal sum
         weighted by 1 / positives per scene, over the element count, over
-        B."""
+        B.  With a process ``group`` of W ranks each rank's loss is its
+        share of the loss over all W * B scenes (the ranks' mean is that
+        loss, ``parallel/mesh.global_terms``): the box and direction terms
+        are means over the scenes already, and the class term's element
+        count and B are the global ones, so it is also divided by W."""
         targets = [self.assign_targets(b, l, v)
                    for b, l, v in zip(gt_boxes, gt_labels, gt_valid)]
         labels, tgt, reg_w = (torch.stack(t) for t in zip(*targets))
@@ -326,7 +332,8 @@ class AnchorHeadSingle(AnchorTargets, nn.Module):
         onehot = torch.nn.functional.one_hot(labels.clamp(0, K), K + 1)[
             ..., 1:].to(outs["cls_preds"].dtype)
         cls_loss = L.sigmoid_focal_loss(outs["cls_preds"], onehot,
-                                        weight=cls_w) / B * self.w_cls
+                                        weight=cls_w) / (
+            B * group_size(group)) * self.w_cls
         # sin-difference heading (anchor_head_template.py:117-131)
         bp, bt = outs["box_preds"], tgt
         if not self.coder.sincos:

@@ -35,6 +35,7 @@ from torch import nn
 from ...core import nms as nms_mod
 from ...core.module import Params, init_bn, register_flat
 from ...utils import loss_utils as L
+from ...utils.commu_utils import group_size
 from ..backbones_2d.base_bev_backbone import bn2d, conv2d_same
 from .anchor_head import (AnchorTargets, ResidualCoder, generate_anchors,
                           limit_period)
@@ -190,23 +191,25 @@ class AnchorHeadMulti(nn.Module):
                 conv1x1(f"head{hi}.dir", A * self.num_dir_bins)
         return P, S
 
-    def _branch(self, P, S, path, x, updates):
+    def _branch(self, P, S, path, x, updates, sync):
         for k in range(self.n_middle):
             x = torch.relu(bn2d(P, S, f"{path}.m{k}.bn",
                                 conv2d_same(x, P[f"{path}.m{k}.weight"]),
-                                updates))
+                                updates, sync))
         y = conv2d_same(x, P[f"{path}.out.weight"])
         return _rows(y) + P[f"{path}.out.bias"]
 
     def forward(self, P: Params, bev: torch.Tensor,
                 prefix: str = "dense_head", S: Optional[Params] = None,
-                updates: Optional[Params] = None) -> Dict:
+                updates: Optional[Params] = None, sync=None) -> Dict:
         """bev [C, H, W] (or [B, C, H, W]) -> per head ``cls_preds_{i}``
         [(B,) A_i*H*W, K_i], ``box_preds_{i}`` and ``dir_preds_{i}``.
         ``S``: the model's buffers (the BN running statistics); in
-        training ``updates`` receives the BN running-stat updates."""
+        training ``updates`` receives the BN running-stat updates, and a
+        ``sync`` pools the BN statistics over the ranks (``bn2d``)."""
         x = conv2d_same(bev, P[prefix + ".shared_conv.weight"])
-        x = torch.relu(bn2d(P, S, prefix + ".shared_conv.bn", x, updates))
+        x = torch.relu(bn2d(P, S, prefix + ".shared_conv.bn", x, updates,
+                            sync))
         flat = _rows(x)
         out: Dict = {}
         for hi, h in enumerate(self.heads):
@@ -214,9 +217,10 @@ class AnchorHeadMulti(nn.Module):
             pre = f"{prefix}.head{hi}"
             if self.separate_reg:
                 out[f"cls_preds_{hi}"] = _anchor_major(
-                    self._branch(P, S, pre + ".cls", x, updates), A, K)
+                    self._branch(P, S, pre + ".cls", x, updates, sync), A, K)
                 out[f"box_preds_{hi}"] = torch.cat([_anchor_major(
-                    self._branch(P, S, f"{pre}.{name}", x, updates), A, ch)
+                    self._branch(P, S, f"{pre}.{name}", x, updates, sync), A,
+                    ch)
                     for name, ch in self.reg_list], dim=-1)
             else:
                 out[f"cls_preds_{hi}"] = _anchor_major(
@@ -233,18 +237,19 @@ class AnchorHeadMulti(nn.Module):
 
     # ------------------------------------------------------------------
     def loss(self, outs: Dict, gt_boxes: torch.Tensor,
-             gt_labels: torch.Tensor, gt_valid: torch.Tensor):
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor, group=None):
         """The batch's loss (outs with a leading scene axis, GT boxes
         [B, G, box_dim], labels [B, G], valid [B, G]): (loss, tb) with
         ``rpn_loss_cls``, ``rpn_loss_loc``, ``rpn_loss_dir`` and their sum
         ``rpn_loss``; the positives that normalize a scene are counted over
-        every head."""
+        every head.  With a process ``group`` each rank's loss is its share
+        of the global one, as in ``AnchorHeadSingle.loss``."""
         per_head = []
         for h in self.heads:
             t = [h["targets"].assign_targets(b, l, v)
                  for b, l, v in zip(gt_boxes, gt_labels, gt_valid)]
             per_head.append(tuple(torch.stack(x) for x in zip(*t)))
-        B = gt_boxes.shape[0]
+        B, W = gt_boxes.shape[0], group_size(group)
         pos_norm = sum(w.sum(1) for _, _, w in per_head).clamp(
             min=1.0)[:, None]                                  # [B, 1]
         cls_total = loc_total = dir_total = 0.0
@@ -256,7 +261,7 @@ class AnchorHeadMulti(nn.Module):
             onehot = ((labels[..., None] - 1) == cids).to(
                 outs[f"cls_preds_{hi}"].dtype)
             cls_total = cls_total + L.sigmoid_focal_loss(
-                outs[f"cls_preds_{hi}"], onehot, weight=cls_w) / B * \
+                outs[f"cls_preds_{hi}"], onehot, weight=cls_w) / (B * W) * \
                 self.w_cls
             bp, bt = outs[f"box_preds_{hi}"], tgt
             if not self.coder.sincos:

@@ -23,6 +23,19 @@ vmap axis does), then the B maps as one batch through the 2-D backbone
 the batch.  The sparse convs' backward packs its keys at the bits of its
 forward (``ops/sparse_conv._SparseConvFn``), so ``loss.backward()`` may run
 after the scope has closed.
+
+Given a process group of W ranks (``--dist``), rank r's b scenes are the
+global scenes r*b .. r*b + b - 1 of a W*b-scene step, as in
+``CAGroup3D.forward_train``: they draw the global scenes' random streams;
+every BN (the sparse half's, the BEV maps' and the heads') pools all W*b
+scenes through the step's one chain of numbered cross-rank sums
+(``core/norm.RankSum``: the scene threads' sync points, then the batched
+stages' through ``SceneSync.batch_sync``); each rank's loss is its share
+of the global loss, so that the ranks' mean is that loss
+(``parallel/mesh.global_terms``): the anchor losses' box and direction
+terms are per-scene means, their class term, over the batch's element
+count as in the JAX package, is divided by W too, and SECOND-IoU's RoI
+count is a global sum.
 """
 from __future__ import annotations
 
@@ -35,15 +48,21 @@ from ...core.hashing import key_bits_scope
 from ...core.module import Ctx, flat_state
 from ...core.norm import SceneSync
 from ...ops import build
-from ...utils.commu_utils import group_size
+from ...utils.commu_utils import group_rank, group_size
 from .cagroup3d import run_scenes
 from .detector3d_template import (DEFAULT_KEY_BITS, Detector3DTemplate,
                                   key_bits_for)
 
 
+def batch_sync(ctxs):
+    """The sync of the stages that run over the whole batch after the scene
+    threads of ``ctxs`` (``SceneSync.batch_sync``), or None."""
+    sync = ctxs[0].sync
+    return None if sync is None else sync.batch_sync()
+
+
 class SECONDNet(Detector3DTemplate):
     READS_DATASET = True
-    DIST_NAME = "SECOND"
 
     def __init__(self, model_cfg, num_class: int,
                  generator: Optional[torch.Generator] = None, dataset=None):
@@ -90,19 +109,18 @@ class SECONDNet(Detector3DTemplate):
                    group=None):
         """The batch's sparse halves (VFE, sparse backbone, BEV map), each
         scene in a thread of its own inside the model's bits, BN pooled
-        over the scenes.  Returns (P, S, the scenes' ``Ctx`` (each with a
-        generator seeded from ``generator``), the BEV maps [B, C, H, W])."""
-        if group_size(group) > 1:
-            raise NotImplementedError(
-                f"{self.DIST_NAME} with --dist: its BN statistics are not "
-                f"pooled over ranks yet (train {self.DIST_NAME} on one "
-                f"card)")
+        over the scenes (and the ranks of ``group``).  Returns (P, S, the
+        scenes' ``Ctx`` (each with a generator seeded from ``generator``
+        by its global index, and the step's ``SceneSync``), the BEV maps
+        [B, C, H, W])."""
         P, S = flat_state(self)
         B = batch["points"].shape[0]
-        sync = SceneSync(B) if B > 1 else None
+        W, r = group_size(group), group_rank(group)
+        sync = SceneSync(B, group) if B > 1 or W > 1 else None
         if batch["points"].is_cuda and self.backbone_3d is not None:
             build.load("sparse_conv")     # build before the scene threads
-        seeds = torch.randint(0, 1 << 62, (B,), generator=generator).tolist()
+        seeds = torch.randint(0, 1 << 62, (W * B,), generator=generator)[
+            r * B:(r + 1) * B].tolist()
         ctxs = [Ctx(train=True, generator=torch.Generator().manual_seed(sd),
                     sync=sync, scene=i) for i, sd in enumerate(seeds)]
 
@@ -116,17 +134,20 @@ class SECONDNet(Detector3DTemplate):
         return P, S, ctxs, torch.stack(bevs)
 
     def train_heads(self, P, S, ctxs, bev: torch.Tensor, batch: Dict,
-                    roi_draws=None):
+                    roi_draws=None, group=None):
         """The training forward from the BEV maps bev [B, C, H, W] on: the
         2-D backbone and the head over the batch (BN over all B * H * W
-        positions) and the loss.  Returns (loss, tb, the running-stat
+        positions, and over the ranks' maps through the batch sync of
+        ``ctxs[0].sync``) and the loss.  Returns (loss, tb, the running-stat
         updates of every BN, the sparse half's from ``ctxs[0]``)."""
         updates = dict(ctxs[0].updates)
-        bev2d = self.backbone_2d(P, S, bev, updates=updates)
-        outs = self.dense_head(P, bev2d, S=S, updates=updates)
+        sync = batch_sync(ctxs)
+        bev2d = self.backbone_2d(P, S, bev, updates=updates, sync=sync)
+        outs = self.dense_head(P, bev2d, S=S, updates=updates, sync=sync)
         loss, tb = self.dense_head.loss(
             outs, batch["gt_boxes"][..., :7],
-            batch["gt_boxes"][..., 7].to(torch.int64), batch["gt_valid"])
+            batch["gt_boxes"][..., 7].to(torch.int64), batch["gt_valid"],
+            group=group)
         return loss, tb, updates
 
     def forward_train(self, batch: Dict, generator: torch.Generator,
@@ -137,13 +158,17 @@ class SECONDNet(Detector3DTemplate):
         ``roi_draws`` overrides the RoI sampling's draws of a model with an
         RoI head (SECOND and PointPillar draw no random numbers).  Returns
         (loss, tb_dict, running-stat updates): the loss terms, ``loss_all``
-        and each capacity counter summed over the scenes."""
+        and each capacity counter summed over the scenes.  With a process
+        ``group`` the batch is this rank's block of the step (the module
+        docstring)."""
         P, S, ctxs, bev = self.train_maps(batch, generator, group)
         loss, tb, updates = self.train_heads(P, S, ctxs, bev, batch,
-                                             roi_draws)
+                                             roi_draws, group)
         for k in ctxs[0].stats:
             tb[k] = sum(c.stats[k] for c in ctxs).float()
         tb["loss_all"] = loss
+        if ctxs[0].sync is not None:
+            loss = ctxs[0].sync.attach(loss)
         return loss, tb, updates
 
     def predict(self, P, S, ctx: Ctx, out: Dict, bev2d, points, pvalid):
@@ -176,4 +201,3 @@ class SECONDNet(Detector3DTemplate):
 class PointPillar(SECONDNet):
     """pointpillar.py: SECONDNet's pipeline with PillarVFE and
     PointPillarScatter in place of the sparse half."""
-    DIST_NAME = "PointPillar"

@@ -29,12 +29,10 @@ import torch
 from ...core import nms as nms_mod
 from ...core.module import Ctx
 from ...core.roi_pools import points_in_boxes
-from .second_net import SECONDNet
+from .second_net import SECONDNet, batch_sync
 
 
 class SECONDNetIoU(SECONDNet):
-    DIST_NAME = "SECOND-IoU"
-
     @torch.no_grad()
     def proposals(self, out: Dict, train: bool):
         """One scene's proposals from its head outputs: (rois [M, 7],
@@ -48,28 +46,31 @@ class SECONDNetIoU(SECONDNet):
             train=train)
 
     def train_heads(self, P, S, ctxs, bev: torch.Tensor, batch: Dict,
-                    roi_draws=None):
+                    roi_draws=None, group=None):
         """``SECONDNet.train_heads`` and the second stage: per scene the
         training proposals and the RoI sampling (``roi_draws`` [B]
-        overrides each scene's draws), the IoU branch over the batch, and
-        the RPN loss plus the RCNN IoU loss."""
+        overrides each scene's draws; else each scene's stream, drawn by
+        its global index), the IoU branch over the batch (BN over the
+        ranks' RoIs too, dropout from each scene's stream), and the RPN
+        loss plus the RCNN IoU loss (its RoI count global)."""
         updates = dict(ctxs[0].updates)
-        bev2d = self.backbone_2d(P, S, bev, updates=updates)
-        outs = self.dense_head(P, bev2d, S=S, updates=updates)
+        sync = batch_sync(ctxs)
+        bev2d = self.backbone_2d(P, S, bev, updates=updates, sync=sync)
+        outs = self.dense_head(P, bev2d, S=S, updates=updates, sync=sync)
         gt_boxes = batch["gt_boxes"][..., :7]
         gt_labels = batch["gt_boxes"][..., 7].to(torch.int32)
         gt_valid = batch["gt_valid"]
         props = [self.proposals({k: v[i] for k, v in outs.items()}, True)
                  for i in range(len(ctxs))]
-        rctx = Ctx(train=True)
+        rctx = Ctx(train=True, sync=sync)
         roi_out = self.roi_head.forward_train(
             P, S, rctx, ctxs, props, gt_boxes, gt_labels, gt_valid, bev2d,
             self.point_cloud_range, self.voxel_size, draws=roi_draws)
         updates.update(rctx.updates)
         loss_rpn, tb = self.dense_head.loss(outs, gt_boxes,
                                             gt_labels.to(torch.int64),
-                                            gt_valid)
-        loss_rcnn, tb_r = self.roi_head.loss(roi_out)
+                                            gt_valid, group=group)
+        loss_rcnn, tb_r = self.roi_head.loss(roi_out, group=group)
         tb.update(tb_r)
         return loss_rpn + loss_rcnn, tb, updates
 

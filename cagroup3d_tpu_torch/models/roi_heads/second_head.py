@@ -29,6 +29,7 @@ import torch
 from ...core.module import (Ctx, Params, apply_bn, dropout, init_bn,
                             init_linear, register_flat)
 from ...utils import loss_utils as L
+from ...utils.commu_utils import global_sum, group_size
 from .pvrcnn_head import PVRCNNHead
 from .target_assigner.cagroup_proposal_target_layer import \
     ProposalTargetLayer
@@ -198,9 +199,12 @@ class SECONDHead(PVRCNNHead):
                            voxel_size)
         return self.iou_branch(P, S, ctx, pooled, roi_valid, prefix=prefix)
 
-    def loss(self, fwd: Dict[str, torch.Tensor]):
+    def loss(self, fwd: Dict[str, torch.Tensor], group=None):
         """The IoU regression loss over every RoI of the batch: (loss, tb
-        with ``rcnn_loss_iou`` and ``rcnn_loss``)."""
+        with ``rcnn_loss_iou`` and ``rcnn_loss``).  With a process
+        ``group`` of W ranks the RoI count is the global one and each
+        rank's loss is its share times W, so that the ranks' mean is the
+        loss over every rank's RoIs (``parallel/mesh.global_terms``)."""
         iou = fwd["rcnn_iou"].reshape(-1)
         lab = fwd["rcnn_cls_labels"].reshape(-1)
         ok = (lab >= 0).to(iou.dtype)
@@ -211,5 +215,6 @@ class SECONDHead(PVRCNNHead):
             e = (iou - t) ** 2
         else:
             e = L.smooth_l1(iou, t, beta=1.0 / 9.0, reduction="none")
-        li = (e * ok).sum() / ok.sum().clamp(min=1.0) * self.w_iou
+        n_ok = global_sum(ok.sum(), group).clamp(min=1.0)
+        li = (e * ok).sum() / n_ok * (self.w_iou * group_size(group))
         return li, dict(rcnn_loss_iou=li, rcnn_loss=li)

@@ -69,10 +69,17 @@ after it.
    K1 and K2 launched.  It prints the harness's ms/scene, the loader's
    share and whether two direct calls give the same bits
    (``phase_test_cli``).
+7d. demo (ScanNet) -- the ``demo`` CLI (``cagroup3d_tpu_torch.tools.demo``)
+   in-process on two 100k-point scenes, a ``.bin`` and an ``.npy``, with a
+   checkpoint of phase 6's model: each ``--out_file`` equals
+   ``forward_eval`` at epoch 1000 on the same batches bit for bit, K1 and
+   K2 launched, the ``.bin`` read by the C++ library of
+   ``datasets/native_io`` (not its numpy fallback), and ``--render_dir``
+   failing on a missing matplotlib before the first scene (``phase_demo``).
 7c. train-cli -- the training entry point: a one-batch 100k-point
-   synthetic tree of 4 scenes (CLI_TRAIN_BATCH) with REPEAT.train 1, the
+   synthetic tree of 2 scenes (CLI_TRAIN_BATCH) with REPEAT.train 1, the
    ``train`` CLI (``cagroup3d_tpu_torch.tools.train``) run in-process at
-   the YAML's full width and ``--batch_size 4``, with the model as users
+   the YAML's full width and ``--batch_size 2``, with the model as users
    build it:
    ``--epochs 1`` (one step), then ``--epochs 2``, which resumes
    from ``checkpoint_epoch_1.pkl``; then the ``test`` CLI on
@@ -223,11 +230,13 @@ card (``phase_dist``):
 dist -- two ranks spawned over gloo (NCCL takes one rank a card), each
    with one scene of a two-scene step, against one process of the two
    scenes on the same parameters, batch and generator: the ScanNet YAML's
-   full-width CAGroup3D, the tiny SUN RGB-D CAGroup3D and the tiny SUN
-   RGB-D RBGNet (``DIST_CASES``).  Held: the first step's loss and every
-   tb term within 1e-5 relative, the ranks' parameters and BN buffers the
-   same bits after two steps, every module's gradients within phase 10's
-   bars, K1 and K3 launched in each CAGroup3D rank (none in RBGNet's).
+   full-width CAGroup3D, the tiny SUN RGB-D CAGroup3D, the tiny SUN
+   RGB-D RBGNet, and the tiny SECOND, PointPillar, SECOND-multihead and
+   SECOND-IoU on KITTI's range (``DIST_CASES``, one spawn).  Held: the
+   first step's loss and every tb term within 1e-5 relative, the ranks'
+   parameters and BN buffers the same bits after two steps, every
+   module's gradients within phase 10's bars, K1 and K3 launched in each
+   CAGroup3D and SECOND-family rank (none in RBGNet's or PointPillar's).
    Then the ``train`` CLI with ``--dist`` under ``torchrun --standalone
    --nproc_per_node 1`` (NCCL) for an epoch on a small tree, and the
    ``test`` CLI on its checkpoint under torchrun with ``--dist`` and as
@@ -239,7 +248,8 @@ both CAGroup3D paths' main-path runs summed (and of both paths' CLI runs,
 SECOND's requests and CLI, ``second_launches`` and
 ``second_test_cli_launches``; of SECOND's timed training steps and its
 ``train`` CLI, ``second_train_launches`` and ``second_train_cli_launches``;
-of the dist phase's ranks, ``dist_launches``), the ScanNet path's times
+of the dist phase's ranks, ``dist_launches``; of the demo phase,
+``demo_launches``), the ScanNet path's times
 and each path's own under ``paths`` (``kitti_second``: K1 over one SECOND
 frame's eval calls, and under ``train`` K1's and K3's over one B = 4
 training step's calls).  The last is {"ok": true, "device": {...}}.
@@ -267,9 +277,9 @@ TRAIN_STEPS, TRAIN_STEPS_YAW, LEARN_STEPS = 1, 1, 30
 RBG_TRAIN_STEPS, RBG_LEARN_STEPS = 2, 60
 RBG_LEARN_SEEDS = (11,)                 # rbgnet-learn's fixed batches
 CLI_SCENES = 8
-# phase 7c's batch (SUN RGB-D's YAML asks 8; phase 9 trains at it), cut to
-# keep the whole script under ten minutes
-CLI_TRAIN_BATCH = 4
+# phase 7c's batch (the YAMLs ask 4 and 8; phase 9 trains at them), cut to
+# keep the whole script under ten minutes (4 until the demo phase came)
+CLI_TRAIN_BATCH = 2
 NEEDED = ("a_", "b_", "c_", "d_", "e_", "f_")    # the main-path forms
 EVAL_KERNELS = ("sparse_conv", "segsum")        # CAGroup3D's eval launches
 STEPS_PER_EPOCH = 1000          # no LR decay step inside these runs
@@ -1685,8 +1695,8 @@ def phase_train_cli(dev, gpu, power, path):
     this process on a synthetic tree of one batch of 100k-point scenes
     (``write_indoor_tree``) with REPEAT.train 1, at the YAML's full width
     and its batch up to CLI_TRAIN_BATCH, with its model as users build it
-    (seeded, nothing opened or lifted): ``--epochs 1`` (one step of 4
-    scenes; phase 9 trains SUN RGB-D at its YAML's 8), then ``--epochs
+    (seeded, nothing opened or lifted): ``--epochs 1`` (one step of
+    CLI_TRAIN_BATCH scenes; phase 9 trains at the YAML's), then ``--epochs
     2``, which must auto-resume from
     ``checkpoint_epoch_1.pkl``; then the ``test`` CLI evaluates
     ``checkpoint_epoch_2.pkl`` over the same tree (its mAP printed, not
@@ -1767,6 +1777,148 @@ def phase_train_cli(dev, gpu, power, path):
     return train_launches, eval_launches
 
 
+DEMO_SEEDS = (40, 41)       # the demo phase's two scenes
+
+
+def phase_demo(model, mc, dev, gpu, power, path):
+    """Phase 7d (``demo``, after 7b; ScanNet): the ``demo`` CLI
+    (``cagroup3d_tpu_torch.tools.demo``) in this process on two 100k-point
+    scenes, one a ``.bin`` in a directory, one an ``.npy`` file (two
+    runs), evaluating a checkpoint of ``model`` (the YAML's full-width
+    CAGroup3D at ``mc``, gate open and class prior lifted as phase 6
+    builds it).  Held: each ``--out_file`` holds the boxes, scores and
+    labels of ``model.forward_eval`` at epoch 1000 on the same
+    ``DemoDataset`` batches, bit for bit; K1 and K2 launched in the demo
+    runs (``launch_counts``); the ``.bin`` scenes read through the C++
+    library of ``datasets/native_io`` (the phase fails on its numpy
+    fallback); ``--render_dir`` fails naming matplotlib before the first
+    scene where matplotlib is missing (launching nothing), or else writes
+    a PNG a scene.  Prints the demo's ms a scene (its whole call, model
+    build and checkpoint load included, over its scenes), the ms of its
+    ``forward_eval`` calls and those of direct warm calls on the same
+    batches."""
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.datasets import native_io
+    from cagroup3d_tpu_torch.tools import demo
+    from cagroup3d_tpu_torch.training.checkpoint import save_checkpoint
+    from cagroup3d_tpu_torch.utils.synthetic import synthetic_request
+    t_phase, bad, out = time.time(), [], {}
+    built, fwd_ms = [], []
+
+    def build_network(*a, **kw):            # the demo's model, its forwards
+        m = real_build(*a, **kw)            # timed
+        inner = m.forward_eval
+
+        def timed(batch, cur_epoch=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inner(batch, cur_epoch=cur_epoch)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+        m.forward_eval = timed
+        built.append(m)
+        return m
+
+    real_build = demo.build_network
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as tmp:
+        ckpt = os.path.join(tmp, "demo.pkl")
+        save_checkpoint(ckpt, model)
+        os.makedirs(os.path.join(tmp, "bins"))
+        for seed, name in zip(DEMO_SEEDS, ("bins/scene_a.bin",
+                                           "scene_b.npy")):
+            req = synthetic_request(seed, "cpu", N_POINTS, **path.scene)
+            pts = req["points"][0][req["points_valid"][0]].numpy()
+            if name.endswith(".bin"):
+                pts.tofile(os.path.join(tmp, name))
+            else:
+                np.save(os.path.join(tmp, name), pts)
+        runs = (("bin", os.path.join(tmp, "bins"), ".bin"),
+                ("npy", os.path.join(tmp, "scene_b.npy"), ".npy"))
+        demo.build_network = build_network
+        launch_counts(reset=True)
+        try:
+            for tag, data, ext in runs:
+                args, cfg = demo.parse_config([
+                    "--cfg_file", path.cfg_path, "--data_path", data,
+                    "--ext", ext, "--ckpt", ckpt, "--out_file",
+                    os.path.join(tmp, tag + ".pkl")])
+                cfg.MODEL = copy.deepcopy(mc)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                demo.main(args, cfg)
+                torch.cuda.synchronize()
+                out[tag] = dict(seconds=time.perf_counter() - t0)
+            launches = launch_counts()
+            args, cfg = demo.parse_config([
+                "--cfg_file", path.cfg_path, "--data_path", runs[0][1],
+                "--ckpt", ckpt, "--render_dir", os.path.join(tmp, "png")])
+            cfg.MODEL = copy.deepcopy(mc)
+            try:
+                demo.main(args, cfg)
+                render = dict(raised=None, pngs=len(os.listdir(
+                    os.path.join(tmp, "png"))))
+                if render["pngs"] != 1:
+                    bad.append(f"--render_dir wrote {render['pngs']} PNGs")
+            except RuntimeError as e:
+                render = dict(raised=str(e))
+                if "matplotlib" not in str(e) or \
+                        launch_counts() != launches or \
+                        len(built) != len(runs):
+                    bad.append(f"--render_dir failed otherwise: {e}")
+        finally:
+            demo.build_network = real_build
+        direct_ms = []
+        for tag, data, ext in runs:
+            ds = demo.DemoDataset(data, ext)
+            with open(os.path.join(tmp, tag + ".pkl"), "rb") as f:
+                dumped = pickle.load(f)
+            same = len(dumped) == len(ds) == 1
+            for i in range(len(ds)):
+                b = {k: torch.from_numpy(v).to(dev)
+                     for k, v in ds.batch(i).items()}
+                with torch.inference_mode():
+                    model.forward_eval(b, cur_epoch=1000.0)     # warm
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    o = model.forward_eval(b, cur_epoch=1000.0)
+                    torch.cuda.synchronize()
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+                v = o["pred_valid"][0].cpu().numpy()
+                want = dict(boxes=o["pred_boxes"][0].cpu().numpy()[v],
+                            scores=o["pred_scores"][0].cpu().numpy()[v],
+                            labels=o["pred_labels"][0].cpu().numpy()[v])
+                same = same and dumped[i]["file"] == ds.files[i] and all(
+                    dumped[i][k].dtype == w.dtype and
+                    dumped[i][k].tobytes() == w.tobytes()
+                    for k, w in want.items())
+                out[tag].update(detections=int(v.sum()),
+                                io_path=ds.io_path)
+            out[tag]["same_bits"] = same
+            if not same:
+                bad.append(f"{tag}: --out_file is not forward_eval's "
+                           f"outputs bit for bit")
+    if out["bin"]["io_path"] != "native" or native_io.io_path() != "native":
+        bad.append(f"the .bin scenes were read on the numpy path "
+                   f"({native_io.fallback_reason()})")
+    if min(launches["sparse_conv"], launches["segsum"]) <= 0:
+        bad.append(f"K1 or K2 was not launched by the demo: {launches}")
+    if sum(o["detections"] for o in out.values()) == 0:
+        bad.append("the demo detected nothing")
+    ms = [o["seconds"] * 1e3 for o in out.values()]
+    emit({"phase": "demo", "config": path.name, "ok": not bad, "gpu": gpu,
+          "power_limit": power, "runs": out, "launches": launches,
+          "render": render, "demo_ms_per_scene": ms,
+          "demo_forward_ms": fwd_ms, "direct_forward_ms": direct_ms,
+          "seconds": time.time() - t_phase})
+    if bad:
+        fail("demo", "; ".join(bad))
+    return launches
+
+
 def run_path(dev, gpu, power, path):
     """Phases 3-11 (with 7b and 7c) on one configuration at full width.
     Returns what the ``kernels`` line needs."""
@@ -1781,6 +1933,8 @@ def run_path(dev, gpu, power, path):
     eval_launches = phase_requests(model, dev, gpu, power, path)
     phase_reference(dev, path)
     phase_test_cli(dev, gpu, power, path)
+    demo_launches = phase_demo(model, mc, dev, gpu, power, path) \
+        if path.name == "scannet" else None
     cli_train, cli_eval = phase_train_cli(dev, gpu, power, path)
 
     # 8-11. the training step
@@ -1797,7 +1951,8 @@ def run_path(dev, gpu, power, path):
     return dict(k1_eval=k1_eval, k1_eval_max_abs=max(
         f["max_abs"] for f in forms.values()), k2=k2_stats,
         eval_launches=eval_launches, k1_train=k1_train, k3_train=k3_train,
-        train_launches=train_launches, cli_train=cli_train, cli_eval=cli_eval)
+        train_launches=train_launches, cli_train=cli_train, cli_eval=cli_eval,
+        demo_launches=demo_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3684,13 +3839,14 @@ def run_ranks(fn, args, world=2, timeout_s=DIST_TIMEOUT_S, during=None):
 
 def step_case(spec):
     """(model, optimizer, batch) of a dist comparison, the same on every
-    call: ``spec`` kind ("cagroup3d" or "rbgnet"), cfg (the YAML), tiny
-    (the tiny widths of phases 10-11 and rbgnet-learn, or the YAML's with
-    phase 9's caps), device, B (the global batch) and seed (the batch's).
-    The votes are zeroed (CAGroup3D's as in phase 10, RBGNet's offsets):
-    a vote's floor, FPS over the votes and the radius groups around them
-    are discrete steps that round-off moves, and the ranks add some sums
-    in another order than the one process."""
+    call: ``spec`` kind ("cagroup3d", "rbgnet" or "kitti", with the KITTI
+    YAML's ``name``), cfg (the YAML), tiny (the tiny widths of phases
+    10-11 and rbgnet-learn, or the YAML's with phase 9's caps; KITTI:
+    ``kitti_step_case``), device, B (the global batch) and seed (the
+    batch's).  The votes are zeroed (CAGroup3D's as in phase 10, RBGNet's
+    offsets): a vote's floor, FPS over the votes and the radius groups
+    around them are discrete steps that round-off moves, and the ranks add
+    some sums in another order than the one process."""
     import torch
     from cagroup3d_tpu_torch.models import load_config
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
@@ -3698,6 +3854,10 @@ def step_case(spec):
     n_cls = len(cfg.CLASS_NAMES)
     dev = torch.device(spec["device"])
     tiny = spec["tiny"]
+    if spec["kind"] == "kitti":
+        model, batch = kitti_step_case(spec, cfg, dev)
+        opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH)
+        return model, opt, batch
     if spec["kind"] == "rbgnet":
         mc = copy.deepcopy(cfg.MODEL)
         model = rbg_model(tiny_rbg_model(mc) if tiny else mc, n_cls, dev,
@@ -3729,6 +3889,46 @@ def step_case(spec):
     batch = synthetic_train_batch(spec["seed"], dev, spec["B"],
                                   n_classes=n_cls, yaw=yaw, **scene)
     return model, opt, batch
+
+
+# The dist phase's KITTI models on the CPU (``cpu_caps`` in the spec): a
+# 16 x 16 m range (tests/test_torch_kitti_zoo_cli.py's), 96 x 96 pillars
+# of the YAML's 0.16 m, or 64 x 64 x 40 voxels, where the card's cases run
+# on KITTI's own range and voxel size (K1 and K3 at (11, 11, 8) bits)
+SMALL_KITTI_GRID = {
+    "pointpillar": dict(POINT_CLOUD_RANGE=[0.0, -7.68, -3.0, 15.36, 7.68,
+                                           1.0]),
+    "second": dict(POINT_CLOUD_RANGE=[0.0, -8.0, -3.0, 16.0, 8.0, 2.0],
+                   VOXEL_SIZE=[0.25, 0.25, 0.125])}
+
+
+def kitti_step_case(spec, cfg, dev):
+    """(model, batch) of a KITTI dist comparison: the YAML ``spec["name"]``
+    at tiny widths (``tiny_zoo_config``; second.yaml: ``tiny_second_
+    config``), seeded, its class prior kept, and spec["B"] frames: on
+    KITTI's range two ``kitti_train_batch`` frames of
+    ZOO_TRAIN_FRAME_POINTS points, or with ``cpu_caps`` on
+    SMALL_KITTI_GRID's range the scenes of ``second_learn_batch``."""
+    import torch
+    from cagroup3d_tpu_torch.models import build_network
+    from cagroup3d_tpu_torch.models.detectors.detector3d_template import \
+        dataset_meta
+    name = spec["name"]
+    mc = tiny_second_config(cfg) if name == "second" else \
+        tiny_zoo_config(name, cfg)
+    seeds = range(spec["seed"], spec["seed"] + spec["B"])
+    if spec.get("cpu_caps"):
+        mc.update(copy.deepcopy(SMALL_KITTI_GRID[
+            "pointpillar" if name == "pointpillar" else "second"]))
+        b = second_learn_batch(spec["seed"], B=spec["B"])
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    else:
+        batch = kitti_train_batch(cfg, seeds, dev, ZOO_TRAIN_FRAME_POINTS)
+    model = build_network(mc, len(cfg.CLASS_NAMES),
+                          generator=torch.Generator().manual_seed(1),
+                          device=dev, dataset=dataset_meta(cfg.DATA_CONFIG,
+                                                           cfg.CLASS_NAMES))
+    return model, batch
 
 
 def cpu_caps(mc):
@@ -3854,11 +4054,15 @@ def dist_step_compare(specs, out_dir, world=2, noise=False):
 
 
 # the dist phase's comparisons: (name, spec) over two ranks on the card
+KITTI_DIST = ("second", "pointpillar", "second_multihead", "second_iou")
 DIST_CASES = (
     ("scannet", dict(kind="cagroup3d", cfg=CFGS["scannet"], tiny=False)),
     ("sunrgbd_tiny", dict(kind="cagroup3d", cfg=CFGS["sunrgbd"], tiny=True)),
     ("rbgnet_sunrgbd_tiny", dict(kind="rbgnet", cfg=RBG_CFGS["sunrgbd"],
-                                 tiny=True)))
+                                 tiny=True))) + tuple(
+    (f"kitti_{n}_tiny", dict(kind="kitti", name=n, tiny=True, cfg=dict(
+        ZOO_CFGS, second=KITTI_CFG)[n])) for n in KITTI_DIST)
+
 DIST_CLI_SCENES, DIST_CLI_POINTS = 2, 20_000
 
 
@@ -3868,8 +4072,9 @@ def phase_dist(dev, gpu, power):
     under torchrun over NCCL.
 
     1. For each of DIST_CASES (the ScanNet YAML's full-width CAGroup3D,
-       the tiny SUN RGB-D CAGroup3D, the tiny SUN RGB-D RBGNet; seeded,
-       votes zeroed, ``step_case``): two ranks of one scene each through
+       the tiny SUN RGB-D CAGroup3D, the tiny SUN RGB-D RBGNet, the tiny
+       KITTI anchor family; seeded, votes zeroed, ``step_case``): two
+       ranks of one scene each through
        ``make_train_step`` over a process group, against one process of
        the two scenes with the same parameters, batch and generator
        (``dist_step_compare``).  Held: the first step's loss and every tb
@@ -3879,7 +4084,8 @@ def phase_dist(dev, gpu, power):
        phase 10's bars (the worst parameter's error and the whole
        gradient's in norm within 2e-2 or twice what the one process moves
        when every weight is scaled by 1 + 1e-7); K1 and K3 launched in
-       each rank (CAGroup3D), or none of K1-K3 (RBGNet).
+       each rank (CAGroup3D, the SECOND family), or none of K1-K3
+       (RBGNet, PointPillar).
     2. (``DistCli``; its train run starts first and overlaps part 1.)
        The ``train`` CLI with ``--dist`` under ``torchrun --standalone
        --nproc_per_node 1`` (NCCL) for one epoch on a DIST_CLI_SCENES-
@@ -3917,7 +4123,8 @@ def phase_dist(dev, gpu, power):
                 TOL, 2 * g["noise_vector_rel"]))
             if not g["ok"]:
                 why.append(f"{pre} gradients apart")
-        kernels = base["kind"] == "cagroup3d"
+        kernels = base["kind"] == "cagroup3d" or (   # K1 and K3, or none
+            base["kind"] == "kitti" and base["name"] != "pointpillar")
         for r, la in enumerate(rep["launches"]):
             if kernels and min(la["sparse_conv"], la["sparse_conv_dw"]) <= 0:
                 why.append(f"rank {r} launched K1 or K3 no time: {la}")
@@ -4092,8 +4299,9 @@ def kernel_line(res, rbg, kitti, dist):
     as ``zoo_launches``, ``zoo_train_launches`` and
     ``zoo_train_cli_launches``, over the zoo's eval frames, its timed
     B = 4 steps and ZOO_CLI's ``train`` CLI (each model's own under
-    ``paths``, ``kitti_<name>``), and, as ``dist_launches``, over the
-    dist phase's ranks; its largest
+    ``paths``, ``kitti_<name>``), as ``dist_launches``, over the dist
+    phase's ranks, and, as ``demo_launches``, over the demo phase's two
+    scenes; its largest
     error over every replay, and its times from the ScanNet path, with
     each path's own beside them (``kitti_second``: K1's eval calls of one
     frame, and under ``train`` K1's and K3's calls of one B = 4 training
@@ -4162,6 +4370,9 @@ def kernel_line(res, rbg, kitti, dist):
                     "second_train_cli_launches": kitti[
                         "cli_train_launches"][counter],
                     "dist_launches": dist[counter],
+                    "demo_launches": sum(r["demo_launches"][counter]
+                                         for r in res.values()
+                                         if r["demo_launches"] is not None),
                     "zoo_launches": sum(v["launches"] for v in zoo.values()),
                     "zoo_train_launches": sum(v["train_launches"]
                                               for v in zoo.values()),

@@ -263,8 +263,10 @@ def test_port_imports_no_jax():
     forward at KITTI's grid, the prediction dicts and the official
     evaluation), and the tiny PointPillar, SECOND-multihead and
     SECOND-IoU of their YAMLs (``chip_smoke.tiny_zoo_config``: an eval
-    forward and one training step each), run in a process where jax and
-    the JAX package are blocked."""
+    forward and one training step each), and the imports of the ``demo``
+    CLI, ``native_io`` (its library built or its fallback chosen) and the
+    headless renderer, run in a process where jax and the JAX package are
+    blocked."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['cagroup3d_tpu'] = None\n"
@@ -280,6 +282,10 @@ def test_port_imports_no_jax():
         "import cagroup3d_tpu_torch.tools.test\n"
         "import cagroup3d_tpu_torch.tools.train\n"
         "import cagroup3d_tpu_torch.tools.overfit_check\n"
+        "import cagroup3d_tpu_torch.tools.demo\n"
+        "import cagroup3d_tpu_torch.tools.visual_utils.headless_vis_utils\n"
+        "from cagroup3d_tpu_torch.datasets import native_io\n"
+        "assert native_io.io_path() in ('native', 'numpy')\n"
         "import cagroup3d_tpu_torch.utils.commu_utils\n"
         "from chip_smoke import synthetic_train_batch\n"
         "for name in ('scannet', 'sunrgbd'):\n"

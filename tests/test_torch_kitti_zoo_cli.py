@@ -6,7 +6,7 @@ the JAX init's names and shapes (``jax.eval_shape``) and the ``test`` CLI
 evaluates it; pointpillar.yaml's own DATA_CONFIG (range, voxel size, its
 gt sampling groups) gives the JAX package's batches bit for bit; a
 CAGroup3D built after each model packs keys at 10/10/10; ``--dist``
-training raises for the three.
+training issues each model's cross-rank BN sums in one order.
 """
 import copy
 from pathlib import Path
@@ -30,50 +30,12 @@ from cagroup3d_tpu_torch.utils.synthetic import write_kitti_tree
 from test_torch_kitti import _load, _same
 from test_torch_kitti_zoo import YAMLS, bits
 from test_outdoor import outdoor_batch
+from dist_jobs import tiny_kitti_cfg
 
 torch.set_num_threads(1)
 assert bits        # the key-bits fixture (autouse) of the zoo tests
 NAMES = ["Car", "Pedestrian", "Cyclist"]
-# a 16 x 16 m range: 96 x 96 pillars of 0.16 m (divisible by the 2-D
-# backbone's strides 8), or 64 x 64 x 40 voxels (the final level 2 deep)
-TINY_RANGE = {"pointpillar": [0.0, -7.68, -3.0, 15.36, 7.68, 1.0],
-              "second": [0.0, -8.0, -3.0, 16.0, 8.0, 2.0]}
-
-
-def tiny(name, cfg):
-    """The YAML's cfg at tiny widths on a 16 x 16 m range (the dataset's
-    range too, so the frames are masked to it)."""
-    mc = cfg.MODEL
-    rng = TINY_RANGE["pointpillar" if name == "pointpillar" else "second"]
-    mc.POINT_CLOUD_RANGE = list(rng)
-    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(rng)
-    mc.INPUT_CAP = 4096
-    if name == "pointpillar":
-        mc.VFE.NUM_FILTERS = [16]
-        mc.MAP_TO_BEV.NUM_BEV_FEATURES = 16
-        # the JAX package reads no channel count from the map (see
-        # test_torch_kitti_zoo.py), so name it for both
-        mc.BACKBONE_2D.update(IN_CHANNELS=16, LAYER_NUMS=[1, 1, 1],
-                              NUM_FILTERS=[8, 16, 16],
-                              NUM_UPSAMPLE_FILTERS=[8, 8, 8])
-        mc.DENSE_HEAD.NMS_CONFIG = dict(NMS_PRE_MAXSIZE=128)
-    else:
-        mc.VOXEL_SIZE = [0.25, 0.25, 0.125]
-        mc.BACKBONE_3D.CAPS = {1: 4096, 2: 2048, 4: 1024, 8: 512}
-        mc.BACKBONE_2D.update(LAYER_NUMS=[1, 1], NUM_FILTERS=[16, 32],
-                              NUM_UPSAMPLE_FILTERS=[16, 16])
-    if name == "second_multihead":
-        mc.DENSE_HEAD.SHARED_CONV_NUM_FILTER = 8
-        mc.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 256
-    if name == "second_iou":
-        mc.ROI_HEAD.update(SHARED_FC=[16, 16], IOU_FC=[16])
-        mc.ROI_HEAD.ROI_GRID_POOL.IN_CHANNEL = 32
-        mc.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE = 16
-        mc.ROI_HEAD.NMS_CONFIG.TRAIN.update(NMS_PRE_MAXSIZE=256,
-                                            NMS_POST_MAXSIZE=64)
-        mc.ROI_HEAD.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=128,
-                                           NMS_POST_MAXSIZE=32)
-    return cfg
+tiny = tiny_kitti_cfg      # the YAML's cfg at tiny widths on 16 x 16 m
 
 
 @pytest.fixture(scope="module")
@@ -192,15 +154,15 @@ def test_cagroup3d_after_the_zoo_keeps_default_bits():
 
 @pytest.mark.parametrize("name", sorted(YAMLS))
 def test_dist_raises(name, monkeypatch):
-    """With a process group of more than one rank, each model's training
-    forward raises, naming the model, before it computes anything."""
-    from cagroup3d_tpu_torch.models.detectors import second_net
+    """``--dist`` training no longer raises for the three: with two ranks
+    faked in one process (``test_torch_kitti_dist.collective_order``),
+    each model's training forward issues one cross-rank BN sum a BN, in
+    the same numbered order as either rank, and its backward the reverse
+    order."""
+    from test_torch_kitti_dist import check_collective_order
     from test_torch_kitti_zoo import CFGS
-    monkeypatch.setattr(second_net, "group_size", lambda group: 2)
-    pm = build_network(CFGS[name](), num_class=2, device="cpu")
     b = {k: torch.from_numpy(np.array(v)) for k, v in
          outdoor_batch(np.random.RandomState(0), B=2).items()}
-    want = {"pointpillar": "PointPillar", "second_multihead": "SECOND",
-            "second_iou": "SECOND-IoU"}[name]
-    with pytest.raises(NotImplementedError, match=f"{want} with --dist"):
-        pm.forward_train(b, torch.Generator(), group=object())
+    check_collective_order(
+        lambda: build_network(CFGS[name](), num_class=2, device="cpu"), b,
+        monkeypatch)

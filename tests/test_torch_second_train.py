@@ -388,12 +388,13 @@ def test_force_match_duplicates_match_jax(bits):
 
 
 def test_dist_raises_for_second(monkeypatch):
-    """With a process group of more than one rank, SECOND's training
-    forward raises (its BN statistics are not pooled over ranks yet)
-    before it computes anything."""
-    from cagroup3d_tpu_torch.models.detectors import second_net
-    monkeypatch.setattr(second_net, "group_size", lambda group: 2)
-    pm = build_network(_cfg(False), num_class=2, device="cpu")
+    """``--dist`` training no longer raises for SECOND: with two ranks
+    faked in one process (``test_torch_kitti_dist.collective_order``), its
+    training forward issues one cross-rank BN sum a BN (the sparse half's
+    from the scene threads, then the BEV maps'), in the same numbered
+    order as either rank, and its backward the reverse order."""
+    from test_torch_kitti_dist import check_collective_order
     batch = {k: _t(v) for k, v in _batch(False).items()}
-    with pytest.raises(NotImplementedError, match="SECOND with --dist"):
-        pm.forward_train(batch, torch.Generator(), group=object())
+    check_collective_order(
+        lambda: build_network(_cfg(False), num_class=2, device="cpu"), batch,
+        monkeypatch)
