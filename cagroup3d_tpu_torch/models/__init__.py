@@ -7,13 +7,14 @@ import torch
 
 from ..config import EasyDict, cfg_from_yaml_file
 from .detectors.cagroup3d import CAGroup3D
+from .detectors.centerpoint import CenterPoint
 from .detectors.rbgnet import RBGNet
 from .detectors.second_net import PointPillar, SECONDNet
 from .detectors.second_net_iou import SECONDNetIoU
 
 DETECTORS = {"CAGroup3D": CAGroup3D, "RBGNet": RBGNet,
              "SECONDNet": SECONDNet, "PointPillar": PointPillar,
-             "SECONDNetIoU": SECONDNetIoU}
+             "SECONDNetIoU": SECONDNetIoU, "CenterPoint": CenterPoint}
 
 
 def load_model_config(cfg_path: str):
@@ -33,7 +34,8 @@ def build_network(model_cfg, num_class: int,
                   device=None, dataset=None
                   ) -> Union[CAGroup3D, RBGNet, SECONDNet]:
     """Build the detector named by ``model_cfg.NAME`` (CAGroup3D, RBGNet,
-    SECONDNet, PointPillar or SECONDNetIoU) with a seeded init (``generator``; seed 0 when None) on
+    SECONDNet, PointPillar, SECONDNetIoU or CenterPoint) with a seeded init
+    (``generator``; seed 0 when None) on
     ``device`` (the GPU unless the caller passes another device; there is
     no CPU fallback).  ``dataset`` (a dataset, or
     ``detectors.detector3d_template.dataset_meta`` of its config) gives the

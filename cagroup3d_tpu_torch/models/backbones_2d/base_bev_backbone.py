@@ -6,9 +6,9 @@ a conv (stride ``LAYER_STRIDES``) and ``LAYER_NUMS`` more convs, each with
 BN (eps 1e-3) and ReLU, then an upsampling deblock per level and a channel
 concat.  The JAX package computes these with XLA's dense convolutions
 outside any Pallas kernel; here they are ``F.conv2d`` /
-``F.conv_transpose2d`` in channels-first layout on the JAX package's HWIO
-weights (``blocks.{i}.{j}.weight``, ``deblocks.{i}.weight``), with its
-padding:
+``F.conv_transpose2d`` convolutions in channels-first layout on the JAX
+package's HWIO weights (``blocks.{i}.{j}.weight``, ``deblocks.{i}.weight``),
+forward and backward with cuDNN off (``_Conv2d``), with its padding:
 - ``"SAME"`` pads (total // 2, total - total // 2) with total =
   max((out - 1) * s + k - in, 0): a stride-2 k3 conv on an even map pads
   (0, 1), where ``padding=1`` would shift the map by a pixel;
@@ -43,22 +43,19 @@ def _same_pads(n: int, k: int, s: int):
 
 
 def _batched(fn):
-    """Run ``fn`` on [B, C, H, W]; a [C, H, W] map goes in as B = 1, on
-    PyTorch's own convolution (``_without_cudnn``)."""
+    """Run ``fn`` on [B, C, H, W]; a [C, H, W] map goes in as B = 1."""
     def run(x, *a):
-        with _without_cudnn():
-            return fn(x, *a) if x.dim() == 4 else fn(x[None], *a)[0]
+        return fn(x, *a) if x.dim() == 4 else fn(x[None], *a)[0]
     return run
 
 
 @contextlib.contextmanager
 def _without_cudnn():
-    """The 2-D convs run on PyTorch's im2col + GEMM path (forward and, as
-    autograd records it, backward), not on cuDNN: cuDNN's choice of
-    algorithm depends on the free device memory (with about 20 GB free it
-    takes an FFT algorithm with 17.6 GB of workspace, with less another
-    one) and, when it benchmarks, on timings, so two calls on one input
-    could give other bits."""
+    """cuDNN off inside the block: the 2-D convs run on PyTorch's im2col +
+    GEMM path, not on cuDNN, whose choice of algorithm depends on the free
+    device memory (with about 20 GB free it takes an FFT algorithm with
+    17.6 GB of workspace, with less another one) and, when it benchmarks,
+    on timings, so two calls on one input could give other bits."""
     cudnn = torch.backends.cudnn
     saved = cudnn.enabled
     cudnn.enabled = False
@@ -68,6 +65,32 @@ def _without_cudnn():
         cudnn.enabled = saved
 
 
+class _Conv2d(torch.autograd.Function):
+    """An unpadded, unbiased 2-D conv (``transposed``: a transposed one with
+    ``output_padding``) whose forward and backward both run inside
+    ``_without_cudnn``.  Autograd picks the backward's backend when
+    ``backward()`` runs, after a block around the forward has closed, so
+    the backward opens the block itself."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, transposed: bool,
+                output_padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([stride] * 2, [0, 0], [1, 1], transposed,
+                    [output_padding] * 2, 1)
+        with _without_cudnn():
+            return torch.ops.aten.convolution(x, w, None, *ctx.conf)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with _without_cudnn():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, *ctx.conf,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
 @_batched
 def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     """``lax.conv_general_dilated(x, w, (s, s), "SAME")`` on x [C, H, W]
@@ -75,7 +98,7 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     k = w.shape[0]
     (t, b), (l, r) = (_same_pads(n, k, stride) for n in x.shape[-2:])
     x = F.pad(x, (l, r, t, b))
-    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
+    return _Conv2d.apply(x, w.permute(3, 2, 0, 1), stride, False, 0)
 
 
 def _transpose_pads(k: int, s: int):
@@ -98,7 +121,7 @@ def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor, stride: int):
     if pad_a > k - 1 or extra >= stride:
         raise ValueError(f"no conv_transpose2d form for k={k}, s={stride}")
     wt = w.flip(0, 1).permute(2, 3, 0, 1)                 # [Cin, Cout, k, k]
-    y = F.conv_transpose2d(x, wt, stride=stride, output_padding=extra)
+    y = _Conv2d.apply(x, wt, stride, True, extra)
     lo = k - 1 - pad_a
     H, W = ((n - 1) * stride + 1 + pad_a + pad_b - k + 1
             for n in x.shape[-2:])

@@ -30,6 +30,7 @@ from ..backbones_3d.spconv_backbone import VoxelBackBone8x
 from ..backbones_3d.vfe import MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
 from ..dense_heads.anchor_head_multi import AnchorHeadMulti
+from ..dense_heads.center_head import CenterHead
 from ..roi_heads.second_head import SECONDHead
 
 VFES = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE}
@@ -38,7 +39,7 @@ MAPS_TO_BEV = {"HeightCompression": HeightCompression,
                "PointPillarScatter": PointPillarScatter}
 BACKBONES_2D = {"BaseBEVBackbone": BaseBEVBackbone}
 DENSE_HEADS = {"AnchorHeadSingle": AnchorHeadSingle,
-               "AnchorHeadMulti": AnchorHeadMulti}
+               "AnchorHeadMulti": AnchorHeadMulti, "CenterHead": CenterHead}
 ROI_HEADS = {"SECONDHead": SECONDHead}
 DEFAULT_KEY_BITS = (10, 10, 10)
 VOXEL_PROCESSORS = ("transform_points_to_voxels",
@@ -134,13 +135,15 @@ class Detector3DTemplate(nn.Module):
             c.BACKBONE_2D,
             input_channels=self.map_to_bev_module.num_bev_features,
             generator=gen)
-        self.dense_head = _registry(
-            DENSE_HEADS, "DENSE_HEAD", c.DENSE_HEAD.NAME)(
+        head = _registry(DENSE_HEADS, "DENSE_HEAD", c.DENSE_HEAD.NAME)
+        kw = {"voxel_size": self.voxel_size} if getattr(
+            head, "READS_VOXEL_SIZE", False) else {}
+        self.dense_head = head(
             c.DENSE_HEAD, num_class=self.num_class,
             class_names=self.class_names, grid_size=self.grid_size,
             point_cloud_range=self.point_cloud_range,
             input_channels=self.backbone_2d.num_bev_features, generator=gen,
-            post_cfg=c.get("POST_PROCESSING", None))
+            post_cfg=c.get("POST_PROCESSING", None), **kw)
         if c.get("ROI_HEAD", None) is not None:
             self.roi_head = _registry(ROI_HEADS, "ROI_HEAD", c.ROI_HEAD.NAME)(
                 c.ROI_HEAD, num_class=self.num_class,

@@ -1,7 +1,8 @@
 """SECOND: MeanVFE -> VoxelBackBone8x -> HeightCompression ->
-BaseBEVBackbone -> AnchorHeadSingle (or AnchorHeadMulti, SECOND-multihead),
-and PointPillar: PillarVFE -> PointPillarScatter -> BaseBEVBackbone ->
-AnchorHeadSingle, with no sparse backbone.
+BaseBEVBackbone -> AnchorHeadSingle (or AnchorHeadMulti, SECOND-multihead;
+CenterHead, CenterPoint), and PointPillar: PillarVFE ->
+PointPillarScatter -> BaseBEVBackbone -> AnchorHeadSingle, with no sparse
+backbone.
 
 Counterpart of ``SECONDNet`` and ``PointPillar`` in
 ``cagroup3d_tpu/models/detectors/second_net.py`` (the reference's
@@ -34,8 +35,9 @@ stages' through ``SceneSync.batch_sync``); each rank's loss is its share
 of the global loss, so that the ranks' mean is that loss
 (``parallel/mesh.global_terms``): the anchor losses' box and direction
 terms are per-scene means, their class term, over the batch's element
-count as in the JAX package, is divided by W too, and SECOND-IoU's RoI
-count is a global sum.
+count as in the JAX package, is divided by W too, SECOND-IoU's RoI
+count is a global sum, and so are CenterHead's positive and object
+counts.
 """
 from __future__ import annotations
 
@@ -72,8 +74,13 @@ class SECONDNet(Detector3DTemplate):
         self.key_bits = key_bits_for(self.grid_size)
         self.input_cap = int(model_cfg.get("INPUT_CAP", 65536))
         if self.class_names is None:
-            self.class_names = [a["class_name"] for a in
-                                model_cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG]
+            dh = model_cfg.DENSE_HEAD
+            if dh.get("ANCHOR_GENERATOR_CONFIG") is not None:
+                self.class_names = [a["class_name"] for a in
+                                    dh.ANCHOR_GENERATOR_CONFIG]
+            else:       # CenterHead: the classes of the head groups
+                self.class_names = [c for g in dh.CLASS_NAMES_EACH_HEAD
+                                    for c in g]
         self.build_networks(generator or torch.Generator().manual_seed(0))
 
     def bits_scope(self):

@@ -1,8 +1,9 @@
 """mmdet-style losses (reference pcdet/utils/loss_utils.py, iou3d_loss.py).
 
-Counterpart of ``cagroup3d_tpu/utils/loss_utils.py`` for CAGroup3D and
-RBGNet.  Static shapes: callers pass element weights/masks instead
-of boolean indexing, and ``avg_factor`` is an explicit normalizer.  Ignored
+Counterpart of ``cagroup3d_tpu/utils/loss_utils.py`` for CAGroup3D,
+RBGNet and KITTI's detectors.  Static shapes: callers pass element
+weights/masks instead of boolean indexing, and ``avg_factor`` is an
+explicit normalizer.  Ignored
 labels are -1, which maps to an all-zero one-hot (pure background in the
 focal loss, the reference's ``target[target < 0] = num_classes``).
 """
@@ -153,3 +154,28 @@ def axis_aligned_iou_loss(corners_pred, corners_tgt, weight=None):
     if weight is not None:
         loss = loss * weight
     return loss.sum()
+
+
+def focal_loss_centernet(pred, gt, mask=None, n_pos=None):
+    """CornerNet / CenterNet's penalty-reduced focal loss of the heatmap
+    ``pred`` in (0, 1) against the gaussian heatmap ``gt``: the positive
+    and negative terms over the positives' count, or the negative term
+    alone when there is no positive.  ``n_pos`` replaces the count (and the
+    test on it) with one taken over more than these maps, such as the
+    ranks' global count."""
+    eps = 1e-6
+    pred = torch.minimum(torch.maximum(pred, pred.new_tensor(eps)),
+                         pred.new_tensor(1.0 - eps))
+    pos = (gt >= 1.0).to(pred.dtype)
+    neg = (gt < 1.0).to(pred.dtype)
+    neg_w = torch.pow(1.0 - gt, 4)
+    pos_loss = torch.log(pred) * torch.pow(1.0 - pred, 2) * pos
+    neg_loss = torch.log(1.0 - pred) * torch.pow(pred, 2) * neg_w * neg
+    if mask is not None:
+        pos_loss = pos_loss * mask
+        neg_loss = neg_loss * mask
+    if n_pos is None:
+        n_pos = pos.sum()
+    return torch.where(n_pos > 0,
+                       -(pos_loss.sum() + neg_loss.sum()) /
+                       n_pos.clamp(min=1.0), -neg_loss.sum())

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch port: CAGroup3D eval and training on one NVIDIA
 card, ScanNet and then SUN RGB-D (the yaw path), then RBGNet on both, then
-SECOND's KITTI eval.
+KITTI's SECOND family, then ``--dist``.
 
 Run from the repository root on a machine with a CUDA GPU:
 
@@ -121,7 +121,10 @@ after it.
 11. learn  -- the tiny configuration, one fixed B = 2 batch, 30 steps: the
    loss falls at least nine tenths of the drop the JAX package's step makes
    on the CPU in the same setting (``JAX_LEARN_DROP``, ``JAX_LEARN_DROP_YAW``
-   from ``tests/learn_margin.py [--yaw]``).
+   from ``tests/learn_margin.py [--yaw]``).  Like every learn phase it
+   runs at the end, beside the dist phase, in a process of its own
+   (``LearnJobs``: ``python3 chip_smoke.py --learn <job>``), and its line
+   is printed after the dist phase's.
 
 Then RBGNet (tools/cfgs/{scannet,sunrgbd}_models/RBGNet.yaml; lines
 tagged ``"config": "rbgnet_scannet"`` / ``"rbgnet_sunrgbd"``), at full
@@ -147,8 +150,8 @@ rbgnet-train-cli -- the ``train`` CLI for one epoch over an 8-scene tree
 rbgnet-reference -- the tiny configuration (``TINY_RBG``), card against
    CPU, stage by stage on the same inputs at phase 7's bars, discrete
    steps that part the devices counted (``phase_rbg_reference``).
-rbgnet-learn -- the tiny configuration on one fixed B = 2 batch, 60
-   steps: the drop of the loss's ungated part (``rbg_drop`` of
+rbgnet-learn -- (at the end, ``LearnJobs``) the tiny configuration on
+   one fixed B = 2 batch, 60 steps: the drop of the loss's ungated part (``rbg_drop`` of
    ``rbg_learn_loss``: 1 - the median of the second half / the first) at
    least nine tenths of the JAX package's (``JAX_LEARN_DROP_RBG``,
    ``JAX_LEARN_DROP_RBG_YAW`` from ``tests/learn_margin.py --rbgnet
@@ -190,19 +193,25 @@ second-train -- the full-width SECOND (seeded, as users build it) at the
    h); then SECOND_TRAIN_STEPS timed adam_onecycle steps: ms/step, peak
    GB, the assigner's ms a scene, the launches, the loss finite with a
    box term, every parameter and BN buffer moved (``phase_second_train``).
+grad-bits -- the same model and one batch: the training loss's forward
+   and backward with all device memory free, with all but 12 GB held
+   back, and with all free again; every gradient the same bits in the
+   three runs (the 2-D convs run off cuDNN, whose algorithms follow the
+   free memory; ``phase_grad_bits``).
 second-train-reference -- the tiny SECOND's training step at KITTI's grid
    on the card against the CPU, phase 10's bars (the assigner's IoU
    matrices within 1e-4, the card reading the CPU's).
 second-train-cli -- the ``train`` CLI for an epoch and a resumed second,
    then the ``test`` CLI on ``checkpoint_epoch_2.pkl``.
-Then, on the same train tree, the rest of KITTI's anchor family on
-SECOND's base (``run_zoo_path``; lines tagged ``"config":
-"kitti_pointpillar"``, ``"kitti_second_multihead"``,
-``"kitti_second_iou"``), for each of pointpillar.yaml,
-second_multihead.yaml and second_iou.yaml:
+Then, on the same train tree, the rest of KITTI's SECOND family
+(``run_zoo_path``; lines tagged ``"config": "kitti_pointpillar"``,
+``"kitti_second_multihead"``, ``"kitti_second_iou"``,
+``"kitti_centerpoint"``), for each of pointpillar.yaml,
+second_multihead.yaml, second_iou.yaml and centerpoint.yaml:
 zoo-requests -- the YAML's full-width model (seeded, prior lifted) with
    its own dataset config: a warm-up frame records every K1 call (the
-   SECOND variants 11 at (11, 11, 8); PointPillar none), each replayed
+   SECOND variants and CenterPoint 11 at (11, 11, 8); PointPillar none),
+   each replayed
    against its plain version (``k1`` lines); two 120k-point frames at
    batch 1: ms/scene, peak GB, K1's launches, finite padded outputs, two
    calls on one frame the same bits.
@@ -213,14 +222,16 @@ zoo-reference -- the tiny model (``tiny_zoo_config``) card against CPU:
    matrices and, for SECOND-IoU, its proposals handed to the card).
 zoo-train -- one full-width B = 4 ``make_train_step`` step through
    KittiDataset in train mode with the YAML's DATA_CONFIG: ms/step, peak
-   GB, launches (K1 21 and K3 11 a scene for the SECOND variants), every
-   K1 and K3 call replayed against its plain version (``k3`` lines); the
-   loss finite with a box term, every parameter and buffer moved;
-   SECOND-IoU's training proposals' ms a scene.
-zoo-train-cli -- pointpillar.yaml's ``train`` CLI for an epoch and a
-   resumed second, then its ``test`` CLI (K1 and K3 launch no time).
-second-learn -- the tiny SECOND on a 16 x 16 m grid, one fixed B = 2
-   batch, 30 steps: the loss falls at least nine tenths as far as the JAX
+   GB, launches (K1 21 and K3 11 a scene for the SECOND variants and
+   CenterPoint), every K1 and K3 call replayed against its plain version
+   (``k3`` lines); the loss finite with a box term, every parameter and
+   buffer moved; SECOND-IoU's training proposals' ms a scene.
+   CenterPoint then runs ``grad-bits`` as SECOND does.
+zoo-train-cli -- pointpillar.yaml's and centerpoint.yaml's ``train`` CLI
+   for an epoch and a resumed second, then the ``test`` CLI (PointPillar:
+   K1 and K3 launch no time; CenterPoint: both launch).
+second-learn -- (at the end, ``LearnJobs``) the tiny SECOND on a 16 x 16
+   m grid, one fixed B = 2 batch, 30 steps: the loss falls at least nine tenths as far as the JAX
    package's (``JAX_LEARN_DROP_SECOND``, ``tests/learn_margin.py
    --second``).
 bits -- a tiny CAGroup3D built and run afterwards launches K1 at 10/10/10.
@@ -231,8 +242,9 @@ dist -- two ranks spawned over gloo (NCCL takes one rank a card), each
    with one scene of a two-scene step, against one process of the two
    scenes on the same parameters, batch and generator: the ScanNet YAML's
    full-width CAGroup3D, the tiny SUN RGB-D CAGroup3D, the tiny SUN
-   RGB-D RBGNet, and the tiny SECOND, PointPillar, SECOND-multihead and
-   SECOND-IoU on KITTI's range (``DIST_CASES``, one spawn).  Held: the
+   RGB-D RBGNet, and the tiny SECOND, PointPillar, SECOND-multihead,
+   SECOND-IoU and CenterPoint on KITTI's range (``DIST_CASES``, one
+   spawn).  Held: the
    first step's loss and every tb term within 1e-5 relative, the ranks'
    parameters and BN buffers the same bits after two steps, every
    module's gradients within phase 10's bars, K1 and K3 launched in each
@@ -347,13 +359,11 @@ def fail(phase, msg):
     raise SystemExit(1)
 
 
-def time_ms(fn, reps, warm=True):
+def time_ms(fn, reps):
     """CUDA-event ms of one call of ``fn``, the mean of ``reps`` calls
-    after one warm-up call (none with ``warm=False``, where the caller has
-    just made one)."""
+    after one warm-up call."""
     import torch
-    if warm:
-        fn()
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -363,6 +373,19 @@ def time_ms(fn, reps, warm=True):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_call(fn):
+    """(fn(), CUDA-event ms of that one call)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def rel_err(a, b):
@@ -738,8 +761,8 @@ def replay(calls, forms, run, plain, info, library):
     """Replay recorded calls with the kernel and the plain version on the
     same inputs and gather per-form stats: errors (``rel_err``,
     ``row_err``), zero rows, sorted sources, whether a second kernel call
-    gives the same bits, CUDA-event ms of both (the plain version's one
-    call right after its reference call), the bound ms and the library
+    gives the same bits, CUDA-event ms of both (the plain version's on its
+    reference call, so that it runs once), the bound ms and the library
     yardstick's ms (``library(args, kw)``).  ``info(args, kw)`` ->
     (zero-row mask or None, source tables that must be key-sorted, (bytes,
     FLOPs), shape dict with the launch's plan)."""
@@ -747,7 +770,8 @@ def replay(calls, forms, run, plain, info, library):
     stats = {}
     with torch.no_grad():
         for (args, kw), form in zip(calls, forms):
-            got, ref = run(*args, **kw), plain(*args, **kw)
+            got = run(*args, **kw)
+            ref, plain_ms = timed_call(lambda: plain(*args, **kw))
             again = run(*args, **kw)
             rows, tables, (n_bytes, flops), shape = info(args, kw)
             f = stats.setdefault(form, dict(
@@ -764,8 +788,7 @@ def replay(calls, forms, run, plain, info, library):
                 f["zero_ok"] &= bool((got[~rows] == 0).all())
             f["sorted"] &= all(sources_sorted_(*t) for t in tables)
             f["ms"] += time_ms(lambda: run(*args, **kw), 5)
-            f["plain_ms"] += time_ms(lambda: plain(*args, **kw), 1,
-                                     warm=False)
+            f["plain_ms"] += plain_ms
             f["library_ms"] += library(*args, **kw)
             f["bytes"] += n_bytes
             f["flops"] += flops
@@ -996,11 +1019,16 @@ def phase_train(model, dev, gpu, power, path, n_points=N_POINTS):
     return train_launches
 
 
+def learn_batch(path):
+    """The tiny scenes of phases 10 and 11 (two, seed 11) on the CPU."""
+    return synthetic_train_batch(11, "cpu", 2, **path.scene,
+                                 **TINY_TRAIN_SCENE)
+
+
 def phase_train_reference(dev, path):
     """Phase 10: the tiny training step on the card against the CPU, at
     ``cpu_caps`` (the plain k9 class conv's backward was most of the
-    CPU's steps).  Returns phase 11's configuration, class count and
-    batch."""
+    CPU's steps)."""
     import torch
     ttc, names, _ = tiny_train_config(path.cfg_path)
     n_names = len(names)
@@ -1013,8 +1041,7 @@ def phase_train_reference(dev, path):
         # two devices would train on different class maps
         cpu_m.get_parameter("dense_head.offset_block.6.kernel").zero_()
     gpu_m = copy.deepcopy(cpu_m).to(dev)
-    tb_cpu = synthetic_train_batch(11, "cpu", 2, **path.scene,
-                                   **TINY_TRAIN_SCENE)
+    tb_cpu = learn_batch(path)
     res = {}
     for name_, m_, b_ in (("cpu", cpu_m, tb_cpu),
                           ("gpu", gpu_m, {k: v.to(dev) for k, v in
@@ -1043,15 +1070,18 @@ def phase_train_reference(dev, path):
           "tb_gpu": res["gpu"][1], "grads": reports})
     if not ok:
         fail("train-reference", "card and CPU training steps disagree")
-    return ttc, n_names, tb_cpu
 
 
-def phase_learn(dev, ttc, n_names, batch, path):
-    """Phase 11: the tiny model's loss falls on one fixed batch."""
+def phase_learn(dev, path):
+    """Phase 11: the tiny model's loss falls on one fixed batch (phase
+    10's)."""
     import torch
     from cagroup3d_tpu_torch.parallel.mesh import make_train_step
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
-    learn_m = build_model(ttc, n_names, "cpu", seed=1, train=True).to(dev)
+    ttc, names, _ = tiny_train_config(path.cfg_path)
+    batch = learn_batch(path)
+    learn_m = build_model(ttc, len(names), "cpu", seed=1,
+                          train=True).to(dev)
     lopt, _ = build_optimizer(learn_m, path.cfg.OPTIMIZATION,
                               STEPS_PER_EPOCH)
     lstep = make_train_step(learn_m, lopt, torch.Generator().manual_seed(0),
@@ -1920,8 +1950,9 @@ def phase_demo(model, mc, dev, gpu, power, path):
 
 
 def run_path(dev, gpu, power, path):
-    """Phases 3-11 (with 7b and 7c) on one configuration at full width.
-    Returns what the ``kernels`` line needs."""
+    """Phases 3-10 (with 7b and 7c) on one configuration at full width
+    (phase 11 runs at the end, ``LearnJobs``).  Returns what the
+    ``kernels`` line needs."""
     import torch
     from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
         bias_init_with_prob
@@ -1946,8 +1977,7 @@ def run_path(dev, gpu, power, path):
     train_launches = phase_train(model, dev, gpu, power, path)
     del model
     torch.cuda.empty_cache()
-    ttc, n_names, tiny_batch = phase_train_reference(dev, path)
-    phase_learn(dev, ttc, n_names, tiny_batch, path)
+    phase_train_reference(dev, path)
     return dict(k1_eval=k1_eval, k1_eval_max_abs=max(
         f["max_abs"] for f in forms.values()), k2=k2_stats,
         eval_launches=eval_launches, k1_train=k1_train, k3_train=k3_train,
@@ -2345,8 +2375,9 @@ def phase_rbg_learn(dev, path):
 
 
 def run_rbg_path(dev, gpu, power, path):
-    """RBGNet's phases on one configuration at full width.  Returns the
-    kernels' launches summed over its runs (all 0)."""
+    """RBGNet's phases on one configuration at full width (``rbgnet-learn``
+    runs at the end, ``LearnJobs``).  Returns the kernels' launches summed
+    over its runs (all 0)."""
     import torch
     model = rbg_model(path.cfg.MODEL, path.n_cls, dev, seed=0)
     runs = [phase_rbg_requests(model, dev, gpu, power, path),
@@ -2356,7 +2387,6 @@ def run_rbg_path(dev, gpu, power, path):
     torch.cuda.empty_cache()
     runs.append(phase_rbg_train_cli(dev, gpu, power, path))
     phase_rbg_reference(dev, path)
-    phase_rbg_learn(dev, path)
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -3248,13 +3278,14 @@ def phase_bits_after_second(dev):
 # (SECONDHead)
 # ---------------------------------------------------------------------------
 
-ZOO = ("pointpillar", "second_multihead", "second_iou")
+ZOO = ("pointpillar", "second_multihead", "second_iou", "centerpoint")
 ZOO_CFGS = {n: os.path.join(HERE, "tools", "cfgs", "kitti_models",
                             f"{n}.yaml") for n in ZOO}
 ZOO_K1_PER_SCENE = {"pointpillar": 0, "second_multihead": 11,
-                    "second_iou": 11}
+                    "second_iou": 11, "centerpoint": 11}
 ZOO_FRAMES = 2          # timed eval frames a model (the first warms up too)
-ZOO_CLI = "pointpillar"     # the YAML whose train and test CLIs run
+ZOO_CLI = ("pointpillar", "centerpoint")  # the YAMLs whose CLIs run
+GRAD_BITS = ("centerpoint",)    # the zoo YAMLs of the grad-bits phase
 ZOO_TRAIN_FRAME_POINTS = 20_000     # zoo-reference's frames
 
 
@@ -3264,8 +3295,8 @@ def zoo_tag(name):
 
 def tiny_zoo_config(name, cfg):
     """The YAML's MODEL at tiny widths on its dataset's range and voxel
-    size (the SECOND variants at TINY_SECOND's widths, so at (11, 11, 8)
-    bits; PointPillar's pillars at 10/10/10)."""
+    size (the SECOND variants and CenterPoint at TINY_SECOND's widths, so
+    at (11, 11, 8) bits; PointPillar's pillars at 10/10/10)."""
     if name == "pointpillar":
         mc = copy.deepcopy(cfg.MODEL)
         mc.INPUT_CAP = 16384
@@ -3280,6 +3311,11 @@ def tiny_zoo_config(name, cfg):
     if name == "second_multihead":
         mc.DENSE_HEAD.SHARED_CONV_NUM_FILTER = 16
         mc.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 128
+    elif name == "centerpoint":
+        mc.DENSE_HEAD.SHARED_CONV_CHANNEL = 16
+        mc.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE = 128
+        mc.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.update(
+            NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=64)
     else:
         mc.ROI_HEAD.update(SHARED_FC=[32, 32], IOU_FC=[32])
         mc.ROI_HEAD.ROI_GRID_POOL.IN_CHANNEL = sum(
@@ -3295,8 +3331,9 @@ def tiny_zoo_config(name, cfg):
 def zoo_model(name, cfg, dev, seed, tiny=False, lift=True):
     """A seeded model of the zoo YAML ``name`` through ``build_network``
     with its dataset config; ``tiny``: ``tiny_zoo_config``; ``lift``: the
-    class prior lifted (biases 0), so the untrained model's candidates
-    pass the score threshold and its NMS sees its full candidate set."""
+    class prior lifted (biases 0; CenterHead's heatmap bias too), so the
+    untrained model's candidates pass the score threshold and its NMS sees
+    its full candidate set."""
     import torch
     from cagroup3d_tpu_torch.models import build_network
     from cagroup3d_tpu_torch.models.detectors.detector3d_template import \
@@ -3309,17 +3346,33 @@ def zoo_model(name, cfg, dev, seed, tiny=False, lift=True):
     if lift:
         with torch.no_grad():
             for k, p in m.dense_head.named_parameters():
-                if k.endswith(("cls.bias", "cls.out.bias")):
+                if k.endswith(("cls.bias", "cls.out.bias", "hm.out.bias")):
                     p.zero_()
     return m
 
 
 def anchor_tables(model):
-    """The model's anchor target assigners: the single head itself, or
-    each sub-head's anchors."""
+    """The model's anchor target assigners: the single head itself, each
+    sub-head's anchors, or none (CenterHead)."""
     heads = getattr(model.dense_head, "heads", None)
-    return [model.dense_head] if heads is None else \
-        [h["targets"] for h in heads]
+    if isinstance(heads, list):
+        return [h["targets"] for h in heads]
+    return [model.dense_head] if hasattr(model.dense_head, "match_iou") \
+        else []
+
+
+def score_map(key):
+    """Whether a dense head's output ``key`` holds class logits (the anchor
+    heads' ``cls_preds*``, CenterHead's ``hm_{g}``)."""
+    return key.startswith(("cls_preds", "hm_"))
+
+
+def box_term(tb):
+    """A KITTI model's box regression loss from its tb terms (the anchor
+    heads' ``rpn_loss_loc``; CenterHead's ``loc_loss_head_{g}`` summed)."""
+    if "rpn_loss_loc" in tb:
+        return tb["rpn_loss_loc"]
+    return sum(v for k, v in tb.items() if k.startswith("loc_loss_head_"))
 
 
 def phase_zoo_requests(dev, gpu, power, name, cfg):
@@ -3488,7 +3541,7 @@ def phase_zoo_reference(dev, name, cfg):
         stages["head"] = max(rel_err(hg[k].cpu(), hc[k]) for k in hc)
         gen = torch.Generator().manual_seed(0)
         hc = {k: torch.randn(v.shape, generator=gen) * 2
-              if k.startswith("cls_preds") else v for k, v in hc.items()}
+              if score_map(k) else v for k, v in hc.items()}
         pc = cpu.predict(Pc, Sc, Ctx(), hc, b2c, pts, pv)
         pg = gpu_m.predict(Pg, Sg, Ctx(), {k: v.to(dev) for k, v in
                                            hc.items()}, b2c.to(dev),
@@ -3505,10 +3558,11 @@ def phase_zoo_reference(dev, name, cfg):
     gt, gv = b_cpu["gt_boxes"], b_cpu["gt_valid"]
     ious = [[t.match_iou(gt[i, :, :7], gt[i, :, 7].long(), gv[i])
              for i in range(len(gt))] for t in anchor_tables(cpu)]
-    iou_err = max(float((tg.match_iou(
+    iou_err = max((float((tg.match_iou(
         gt[i, :, :7].to(dev), gt[i, :, 7].long().to(dev),
         gv[i].to(dev)).cpu() - ious[j][i]).abs().max())
-        for j, tg in enumerate(anchor_tables(gpu_m)) for i in range(len(gt)))
+        for j, tg in enumerate(anchor_tables(gpu_m))
+        for i in range(len(gt))), default=0.0)
     props = None
     if hasattr(cpu, "proposals"):
         props, make = [], cpu.proposals
@@ -3547,7 +3601,7 @@ def phase_zoo_reference(dev, name, cfg):
                 if any(k.startswith(p) for k, _ in cpu.named_parameters())]
     reports, grads_ok = held_grads(gpu_m, cpu, pert_m, prefixes)
     ok = eval_ok and loss_rel < 1e-3 and iou_err < 1e-4 and grads_ok and \
-        res["cpu"][1]["rpn_loss_loc"] > 0
+        box_term(res["cpu"][1]) > 0
     emit({"phase": "zoo-reference", **tag, "ok": ok,
           "key_bits": list(cpu.key_bits), "stages": stages,
           "detections": kept, "train_scenes": 2, "iou_max_abs": iou_err,
@@ -3647,7 +3701,7 @@ def phase_zoo_train(dev, gpu, power, name, cfg, tree):
             launches["sparse_conv_dw"] != B * k or launches["segsum"]:
         bad.append(f"launches {launches}")
     if not np.isfinite([float(loss), *tb.values()]).all() or \
-            not tb["rpn_loss_loc"] > 0:
+            not box_term(tb) > 0:
         bad.append(f"the loss is not finite or has no box term: {tb}")
     if moved != len(before):
         bad.append(f"{len(before) - moved} parameters or buffers unchanged")
@@ -3699,10 +3753,92 @@ def phase_zoo_train(dev, gpu, power, name, cfg, tree):
     return k1_train, k3_train, launches
 
 
+# the device memory left free in each grad-bits run (None: all of it)
+GRAD_BITS_FREE_GB = (None, 12.0, None)
+
+
+def phase_grad_bits(dev, gpu, power, name, cfg, tree):
+    """grad-bits: whether the full-width training gradients depend on the
+    free device memory, as cuDNN's choice of algorithm does.  The YAML
+    ``name``'s model (second.yaml's SECOND or a zoo YAML's, seeded, its
+    prior kept) and one B = 4 batch of ``tree``'s train frames (gt
+    sampling, ``np.random`` seeded): the training loss's forward and
+    backward once for each of GRAD_BITS_FREE_GB, the device memory held
+    back by one allocation so that that many GB stay free.  Held: every
+    parameter's gradient the same bits in every run.  Printed: each run's
+    free GB as its forward starts and its peak GB, and per module whether
+    its gradients differ from the first run's and their largest difference
+    relative to its largest gradient."""
+    import numpy as np
+    import torch
+    from cagroup3d_tpu_torch.datasets import build_dataloader
+    tag = KITTI_TAG if name == "second" else zoo_tag(name)
+    t_phase = time.time()
+    dc = copy.deepcopy(cfg.DATA_CONFIG)
+    dc.DATA_PATH = tree
+    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    np.random.seed(0)
+    _, loader, _ = build_dataloader(dc, list(cfg.CLASS_NAMES), B,
+                                    training=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(iter(loader)).items() if k != "frame_id"}
+    model = second_model(cfg, dev, seed=0, lift=False) if name == "second" \
+        else zoo_model(name, cfg, dev, seed=0, lift=False)
+    runs = []
+    for free_gb in GRAD_BITS_FREE_GB:
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        held = None
+        if free_gb is not None:
+            free = torch.cuda.mem_get_info(dev)[0]
+            held = torch.empty(max(int(free - free_gb * 1e9), 0),
+                               dtype=torch.uint8, device=dev)
+        free = torch.cuda.mem_get_info(dev)[0] / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, _ = model.forward_train(batch,
+                                         torch.Generator().manual_seed(0))
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append(dict(free_gb=free,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         loss=float(loss.detach()),
+                         grads={k: p.grad.detach().clone()
+                                for k, p in model.named_parameters()
+                                if p.grad is not None}))
+        del held, loss
+    ref = runs[0]["grads"]
+    modules = sorted({k.split(".")[0] for k in ref})
+    parts = []
+    for r in runs[1:]:
+        d = {}
+        for m in modules:
+            ks = [k for k in ref if k.split(".")[0] == m]
+            diff = max(float((r["grads"][k] - ref[k]).abs().max())
+                       for k in ks)
+            scale = max(float(ref[k].abs().max()) for k in ks)
+            d[m] = dict(same_bits=all(torch.equal(r["grads"][k], ref[k])
+                                      for k in ks),
+                        max_rel=diff / max(scale, 1e-30))
+        parts.append(d)
+    ok = all(v["same_bits"] for d in parts for v in d.values()) and \
+        all(r["loss"] == runs[0]["loss"] for r in runs)
+    emit({"phase": "grad-bits", **tag, "ok": ok, "gpu": gpu,
+          "power_limit": power, "scenes": B,
+          "free_gb": [r["free_gb"] for r in runs],
+          "peak_memory_gb": [r["peak_gb"] for r in runs],
+          "losses": [r["loss"] for r in runs],
+          "against_first_run": parts, "seconds": time.time() - t_phase})
+    del model, runs, ref
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("grad-bits", f"{name}: the gradients' bits follow the free "
+                          f"device memory")
+
+
 def run_zoo_path(dev, gpu, power, tree):
     """The zoo's phases, model by model (``zoo-requests``,
     ``zoo-reference``, ``zoo-train``), then the ``train`` and ``test``
-    CLIs of ZOO_CLI's YAML on ``tree`` (``zoo-train-cli``).  Returns what
+    CLIs of ZOO_CLI's YAMLs on ``tree`` (``zoo-train-cli``).  Returns what
     the ``kernels`` line needs."""
     from cagroup3d_tpu_torch.models import load_config
     out = {}
@@ -3712,14 +3848,17 @@ def run_zoo_path(dev, gpu, power, tree):
         phase_zoo_reference(dev, name, cfg)
         k1_train, k3_train, train_launches = phase_zoo_train(
             dev, gpu, power, name, cfg, tree)
+        if name in GRAD_BITS:
+            phase_grad_bits(dev, gpu, power, name, cfg, tree)
         out[name] = dict(k1_eval=total(forms) if forms else None,
                          k1_train=k1_train, k3_train=k3_train,
                          launches=launches, train_launches=train_launches)
-    cfg = load_config(ZOO_CFGS[ZOO_CLI])
-    out[ZOO_CLI]["cli_train_launches"] = phase_second_train_cli(
-        dev, gpu, power, cfg, tree, cfg_path=ZOO_CFGS[ZOO_CLI],
-        tag=zoo_tag(ZOO_CLI), phase="zoo-train-cli",
-        kernels=bool(ZOO_K1_PER_SCENE[ZOO_CLI]))
+    for name in ZOO_CLI:
+        cfg = load_config(ZOO_CFGS[name])
+        out[name]["cli_train_launches"] = phase_second_train_cli(
+            dev, gpu, power, cfg, tree, cfg_path=ZOO_CFGS[name],
+            tag=zoo_tag(name), phase="zoo-train-cli",
+            kernels=bool(ZOO_K1_PER_SCENE[name]))
     return out
 
 
@@ -3741,11 +3880,11 @@ def run_kitti_path(dev, gpu, power):
                          n_train=B)
         k1_train, k3_train, train_launches = phase_second_train(
             dev, gpu, power, cfg, tree)
+        phase_grad_bits(dev, gpu, power, "second", cfg, tree)
         phase_second_train_reference(dev, cfg)
         cli_train_launches = phase_second_train_cli(dev, gpu, power, cfg,
                                                     tree)
         zoo = run_zoo_path(dev, gpu, power, tree)
-    phase_second_learn(dev, cfg)
     phase_bits_after_second(dev)
     return dict(k1_eval=k1_eval, k1_train=k1_train, k3_train=k3_train,
                 max_abs=dict(sparse_conv=max(
@@ -3920,6 +4059,8 @@ def kitti_step_case(spec, cfg, dev):
     if spec.get("cpu_caps"):
         mc.update(copy.deepcopy(SMALL_KITTI_GRID[
             "pointpillar" if name == "pointpillar" else "second"]))
+        if "VOXEL_SIZE" in mc.DENSE_HEAD:       # CenterHead's own
+            mc.DENSE_HEAD.VOXEL_SIZE = list(mc.VOXEL_SIZE)
         b = second_learn_batch(spec["seed"], B=spec["B"])
         batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
     else:
@@ -4054,7 +4195,8 @@ def dist_step_compare(specs, out_dir, world=2, noise=False):
 
 
 # the dist phase's comparisons: (name, spec) over two ranks on the card
-KITTI_DIST = ("second", "pointpillar", "second_multihead", "second_iou")
+KITTI_DIST = ("second", "pointpillar", "second_multihead", "second_iou",
+              "centerpoint")
 DIST_CASES = (
     ("scannet", dict(kind="cagroup3d", cfg=CFGS["scannet"], tiny=False)),
     ("sunrgbd_tiny", dict(kind="cagroup3d", cfg=CFGS["sunrgbd"], tiny=True)),
@@ -4279,6 +4421,98 @@ class DistCli:
             bad.append(f"the mAP lines differ: {maps}")
 
 
+# ---------------------------------------------------------------------------
+# the learn phases: loss-only checks bound by the host's Python, each in a
+# process of its own beside the dist phase
+# ---------------------------------------------------------------------------
+
+LEARN_JOBS = ("scannet", "sunrgbd", "rbgnet_scannet", "rbgnet_sunrgbd",
+              "second")
+LEARN_TIMEOUT_S = 900
+
+
+def cagroup_paths():
+    return (Path("scannet", TRAIN_STEPS, JAX_LEARN_DROP),
+            Path("sunrgbd", TRAIN_STEPS_YAW, JAX_LEARN_DROP_YAW))
+
+
+def rbg_paths():
+    return (RbgPath("scannet", JAX_LEARN_DROP_RBG),
+            RbgPath("sunrgbd", JAX_LEARN_DROP_RBG_YAW))
+
+
+def learn_job(job):
+    """One of LEARN_JOBS in this process (``chip_smoke.py --learn <job>``):
+    phase 11 of a CAGroup3D path, ``rbgnet-learn`` of an RBGNet path
+    (``rbgnet_<dataset>``) or ``second-learn``."""
+    import torch
+    from cagroup3d_tpu_torch.ops import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for n in ("sparse_conv", "segsum"):
+        build.load(n)
+    dev = torch.device("cuda", 0)
+    if job == "second":
+        phase_second_learn(dev, kitti_config())
+    elif job.startswith("rbgnet_"):
+        (path,) = [p for p in rbg_paths() if p.name == job]
+        phase_rbg_learn(dev, path)
+    else:
+        (path,) = [p for p in cagroup_paths() if p.name == job]
+        phase_learn(dev, path)
+
+
+class LearnJobs:
+    """The learn phases of every path (phase 11 of both CAGroup3D paths,
+    ``rbgnet-learn`` of both RBGNet paths, ``second-learn``), each in a
+    process of its own started together: they hold only how far a loss
+    falls, the card is mostly idle under their host-bound steps, and in
+    one process they took about two minutes one after another.
+    ``finish()`` waits for them, prints their lines and fails if one
+    failed; ``abort()`` stops them."""
+
+    def __init__(self):
+        import tempfile
+        self._tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_learn_")
+        self.runs = []
+        for job in LEARN_JOBS:
+            out = open(os.path.join(self._tmp.name, job + ".out"), "w+")
+            err = open(os.path.join(self._tmp.name, job + ".err"), "w+")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--learn", job],
+                cwd=HERE, stdout=out, stderr=err)
+            self.runs.append((job, proc, out, err))
+
+    def abort(self):
+        for _, proc, out, err in self.runs:
+            proc.kill()
+            proc.wait()
+            out.close()
+            err.close()
+        self._tmp.cleanup()
+
+    def finish(self):
+        bad = []
+        try:
+            for job, proc, out, err in self.runs:
+                try:
+                    rc = proc.wait(timeout=LEARN_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rc = proc.wait()
+                out.seek(0)
+                for line in out:
+                    if line.startswith("{"):
+                        emit(json.loads(line))
+                if rc != 0:
+                    err.seek(0)
+                    bad.append(f"{job} exited {rc}: {err.read()[-2000:]}")
+        finally:
+            self.abort()
+        if bad:
+            fail("learn", "; ".join(bad))
+
+
 def zoo_max_abs(z, counter):
     """A zoo model's largest replay error of a kernel (0 without calls)."""
     keys = {"sparse_conv": ("k1_eval", "k1_train"),
@@ -4298,7 +4532,7 @@ def kernel_line(res, rbg, kitti, dist):
     SECOND's timed B = 4 training steps and its ``train`` CLI's steps,
     as ``zoo_launches``, ``zoo_train_launches`` and
     ``zoo_train_cli_launches``, over the zoo's eval frames, its timed
-    B = 4 steps and ZOO_CLI's ``train`` CLI (each model's own under
+    B = 4 steps and ZOO_CLI's ``train`` CLIs (each model's own under
     ``paths``, ``kitti_<name>``), as ``dist_launches``, over the dist
     phase's ranks, and, as ``demo_launches``, over the demo phase's two
     scenes; its largest
@@ -4428,20 +4662,25 @@ def main():
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
           "libraries": libs, "ptxas": ptxas})
 
-    # 3-11 on each configuration ------------------------------------------
+    # 3-10 on each configuration ------------------------------------------
     res = {}
-    for path in (Path("scannet", TRAIN_STEPS, JAX_LEARN_DROP),
-                 Path("sunrgbd", TRAIN_STEPS_YAW, JAX_LEARN_DROP_YAW)):
+    for path in cagroup_paths():
         res[path.name] = run_path(dev, gpu, power, path)
     # RBGNet on each configuration ----------------------------------------
     rbg = {}
-    for path in (RbgPath("scannet", JAX_LEARN_DROP_RBG),
-                 RbgPath("sunrgbd", JAX_LEARN_DROP_RBG_YAW)):
+    for path in rbg_paths():
         rbg[path.name] = run_rbg_path(dev, gpu, power, path)
     # SECOND on KITTI ------------------------------------------------------
     kitti = run_kitti_path(dev, gpu, power)
-    # training over two ranks, and the CLIs with --dist --------------------
-    dist = phase_dist(dev, gpu, power)
+    # training over two ranks, and the CLIs with --dist, beside the learn
+    # phases ---------------------------------------------------------------
+    learn = LearnJobs()
+    try:
+        dist = phase_dist(dev, gpu, power)
+    except BaseException:
+        learn.abort()
+        raise
+    learn.finish()
     emit(kernel_line(res, rbg, kitti, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
@@ -4450,6 +4689,8 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--learn"]:
+            sys.exit(learn_job(sys.argv[2]))
         sys.exit(main())
     except SystemExit:
         raise

@@ -5,7 +5,8 @@ Run from the repository root on a machine with a CUDA GPU:
 
     python3 profile_port.py [--config scannet|sunrgbd|rbgnet_scannet|
         rbgnet_sunrgbd|kitti_second|kitti_pointpillar|
-        kitti_second_multihead|kitti_second_iou] [--scenes 9]
+        kitti_second_multihead|kitti_second_iou|kitti_centerpoint]
+        [--scenes 9]
         [--out profile.json]
 
 It builds the configuration of ``chip_smoke.py`` (full-width CAGroup3D of
@@ -66,16 +67,19 @@ its forward further split into the assigner (the targets of the B
 scenes), the anchor loss without the assigner, and the rest of the
 forward (the VFE, both backbones and the head).
 
-``--config kitti_pointpillar``, ``kitti_second_multihead`` and
-``kitti_second_iou`` profile the other KITTI YAMLs' full-width models of
-``chip_smoke.py``'s ``zoo-requests`` and ``zoo-train`` the same way
-(PointPillar has no ``backbone_3d`` stage).  Their ``boxes`` stage is the
-model's prediction: SECOND-multihead's per-class NMS over its three
+``--config kitti_pointpillar``, ``kitti_second_multihead``,
+``kitti_second_iou`` and ``kitti_centerpoint`` profile the other KITTI
+YAMLs' full-width models of ``chip_smoke.py``'s ``zoo-requests`` and
+``zoo-train`` the same way (PointPillar has no ``backbone_3d`` stage).
+Their ``boxes`` stage is the model's prediction: SECOND-multihead's per-class NMS over its three
 heads; SECOND-IoU's proposals (``proposals`` alone too), IoU head, score
 fusion and final NMS, where ``nms`` sums the scene's two NMS calls.  In
 SECOND-IoU's ``train_split`` the training proposals (the top 9000 anchors
 a scene, NMS at 0.8) are timed per scene, with the NMS alone
 (``proposal_nms_ms_per_scene``); the assigner's ms sum every head's.
+CenterPoint's ``boxes`` stage is its peak decode (the top 500 peaks) and
+one NMS; its assigner is CenterHead's target assignment (the dense
+gaussian heatmaps and the regression targets of a scene).
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -453,9 +457,11 @@ def profile_second_train(args, name, cfg, card, dev, log):
     tb = [kitti_train_batch(cfg, range(20 + B * i, 20 + B * (i + 1)), dev,
                             KITTI_POINTS) for i in range(2)]
     head, inner = model.dense_head, defaultdict(list)
-    tables = anchor_tables(model)
-    for t in tables:
-        t.assign_targets = timed(t.assign_targets, "assigner", inner)
+    # the target assigners: each anchor table's, or CenterHead's targets
+    tables = [(t, "assign_targets") for t in anchor_tables(model)] or \
+        [(head, "assign_targets_single")]
+    for t, meth in tables:
+        setattr(t, meth, timed(getattr(t, meth), "assigner", inner))
     head.loss = timed(head.loss, "loss", inner)
     saved_nms = nms_mod.greedy_nms
     if hasattr(model, "proposals"):
@@ -468,8 +474,8 @@ def profile_second_train(args, name, cfg, card, dev, log):
         train_phase(lambda b: model.forward_train(b, gen)[0], opt, tb, B,
                     args.train_steps, card, dev, log)
     finally:
-        for t in tables:
-            t.__dict__.pop("assign_targets", None)
+        for t, meth in tables:
+            t.__dict__.pop(meth, None)
         del head.__dict__["loss"]
         model.__dict__.pop("proposals", None)
         nms_mod.greedy_nms = saved_nms
@@ -505,7 +511,8 @@ def main():
                                          "rbgnet_scannet", "rbgnet_sunrgbd",
                                          "kitti_second", "kitti_pointpillar",
                                          "kitti_second_multihead",
-                                         "kitti_second_iou"),
+                                         "kitti_second_iou",
+                                         "kitti_centerpoint"),
                     default="scannet")
     ap.add_argument("--scenes", type=int, default=9)
     ap.add_argument("--train-steps", type=int, default=3)

@@ -153,6 +153,9 @@ def tiny_kitti_cfg(name, cfg):
         mc.BACKBONE_3D.CAPS = {1: 4096, 2: 2048, 4: 1024, 8: 512}
         mc.BACKBONE_2D.update(LAYER_NUMS=[1, 1], NUM_FILTERS=[16, 32],
                               NUM_UPSAMPLE_FILTERS=[16, 16])
+    if name == "centerpoint":
+        mc.DENSE_HEAD.SHARED_CONV_CHANNEL = 8
+        mc.DENSE_HEAD.VOXEL_SIZE = list(mc.VOXEL_SIZE)
     if name == "second_multihead":
         mc.DENSE_HEAD.SHARED_CONV_NUM_FILTER = 8
         mc.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 256

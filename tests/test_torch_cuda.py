@@ -353,3 +353,39 @@ def test_sparse_conv_autograd(dev, k, G, Gw, C, Cout, query, kind):
     (gf, gw), (rf, rw) = grads
     assert _rel(gf, rf) < 2e-2
     assert _rel(gw, rw) < 2e-2
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["conv", "deconv"])
+def test_bev_conv_backward_bits_under_memory_pressure(dev, transposed):
+    """The KITTI BEV convs' forward and backward (``conv2d_same``, or the
+    stride-2 ``conv_transpose2d_same`` deblock) on a B = 4 map of SECOND's
+    widths run off cuDNN: with all device memory free and with memory held
+    back so that 12 GB stay free (cuDNN picks its algorithms by the free
+    memory), the output and both gradients are the same bits."""
+    from cagroup3d_tpu_torch.models.backbones_2d.base_bev_backbone import (
+        conv2d_same, conv_transpose2d_same)
+    g = torch.Generator().manual_seed(3)
+    if transposed:
+        x = torch.randn(4, 256, 100, 88, generator=g).to(dev)
+        w = (torch.randn(2, 2, 256, 256, generator=g) * 0.05).to(dev)
+        fn = lambda a, b: conv_transpose2d_same(a, b, 2)   # noqa: E731
+    else:
+        x = torch.randn(4, 256, 200, 176, generator=g).to(dev)
+        w = (torch.randn(3, 3, 256, 128, generator=g) * 0.05).to(dev)
+        fn = lambda a, b: conv2d_same(a, b, 1)   # noqa: E731
+    runs = []
+    for free_gb in (None, 12.0):
+        torch.cuda.empty_cache()
+        held = None
+        if free_gb is not None:
+            free = torch.cuda.mem_get_info(dev)[0]
+            held = torch.empty(max(int(free - free_gb * 1e9), 0),
+                               dtype=torch.uint8, device=dev)
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xs, ws)
+        y.square().sum().backward()
+        torch.cuda.synchronize()
+        runs.append((y.detach(), xs.grad, ws.grad))
+        del held
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -303,11 +303,12 @@ def collective_order(model, batch, monkeypatch, rank):
     loss)."""
     from cagroup3d_tpu_torch.core import norm
     from cagroup3d_tpu_torch.models.dense_heads import (anchor_head,
-                                                        anchor_head_multi)
+                                                        anchor_head_multi,
+                                                        center_head)
     from cagroup3d_tpu_torch.models.detectors import second_net
     from cagroup3d_tpu_torch.models.roi_heads import second_head
     for mod in (norm, second_net, second_head, anchor_head,
-                anchor_head_multi, commu_utils):
+                anchor_head_multi, center_head, commu_utils):
         monkeypatch.setattr(mod, "group_size", lambda group: 2)
     monkeypatch.setattr(second_net, "group_rank", lambda group: rank)
     monkeypatch.setattr(torch.distributed, "all_reduce",

@@ -61,6 +61,7 @@ from cagroup3d_tpu_torch.models.detectors.cagroup3d import run_scenes
 from cagroup3d_tpu_torch.core.norm import SceneSync
 from cagroup3d_tpu_torch.models.detectors.detector3d_template import \
     dataset_meta
+from test_centerpoint import centerpoint_cfg
 from test_nuscenes import multihead_cfg as nusc_multihead_cfg
 from test_outdoor import outdoor_batch, pillar_cfg, second_cfg
 from test_second_iou import second_iou_cfg
@@ -68,7 +69,8 @@ from test_second_iou import second_iou_cfg
 torch.set_num_threads(1)
 DEFAULT_BITS = (10, 10, 10)
 NAMES = ["Car", "Pedestrian", "Cyclist"]
-YAMLS = {"pointpillar": "tools/cfgs/kitti_models/pointpillar.yaml",
+YAMLS = {"centerpoint": "tools/cfgs/kitti_models/centerpoint.yaml",
+         "pointpillar": "tools/cfgs/kitti_models/pointpillar.yaml",
          "second_multihead": "tools/cfgs/kitti_models/second_multihead.yaml",
          "second_iou": "tools/cfgs/kitti_models/second_iou.yaml"}
 
@@ -111,8 +113,8 @@ def iou_cfg(dp_ratio=0.3):
     return c
 
 
-CFGS = {"pointpillar": pillar_cfg, "second_multihead": multihead_cfg,
-        "second_iou": iou_cfg}
+CFGS = {"centerpoint": centerpoint_cfg, "pointpillar": pillar_cfg,
+        "second_multihead": multihead_cfg, "second_iou": iou_cfg}
 
 
 @pytest.fixture(autouse=True)
@@ -254,6 +256,10 @@ def test_params_match_jax_init_names_and_shapes(name):
             [70400] * 3
     if name == "second_iou":
         assert pm.roi_head.in_ch * 49 == 25088
+    if name == "centerpoint":
+        assert pm.dense_head.fmap_hw == jm.dense_head.fmap_hw == (200, 176)
+        assert pm.dense_head.voxel_size == jm.dense_head.voxel_size
+        assert pm.dense_head.group_class_ids == [[0, 1, 2]]
 
 
 # -------------------------------------------------------------- PointPillar

@@ -1,5 +1,6 @@
-"""The port's CLIs, dataset and key bits on pointpillar.yaml,
-second_multihead.yaml and second_iou.yaml (``--device cpu``, tiny widths,
+"""The port's CLIs, dataset and key bits on centerpoint.yaml,
+pointpillar.yaml, second_multihead.yaml and second_iou.yaml (``--device
+cpu``, tiny widths,
 synthetic KITTI trees from ``utils/synthetic.write_kitti_tree``): the
 ``train`` CLI trains each YAML's model for one epoch, its checkpoint holds
 the JAX init's names and shapes (``jax.eval_shape``) and the ``test`` CLI
@@ -119,10 +120,10 @@ def test_pointpillar_batches_match_jax(tree):
 
 
 def test_cagroup3d_after_the_zoo_keeps_default_bits():
-    """Each of the three tiny models run (the two SECOND variants at
-    KITTI's range and voxel size, where they pack at (11, 11, 8); the
-    pillars open no scope), then a CAGroup3D built and run after them
-    packs keys at 10/10/10."""
+    """Each of the tiny zoo models run (CenterPoint and the two SECOND
+    variants at KITTI's range and voxel size, where they pack at (11, 11,
+    8); the pillars open no scope), then a CAGroup3D built and run after
+    them packs keys at 10/10/10."""
     import __graft_entry__
     from cagroup3d_tpu.utils.synthetic import synthetic_batch
     from test_torch_kitti_zoo import CFGS
@@ -139,7 +140,8 @@ def test_cagroup3d_after_the_zoo_keeps_default_bits():
         assert torch.isfinite(out["pred_boxes"]).all()
         seen.append(tuple(m.key_bits))
         assert hashing.key_bits() == (10, 10, 10)
-    assert seen == [(10, 10, 10), (11, 11, 8), (11, 11, 8)]
+    assert seen == [(10, 10, 10) if name == "pointpillar" else (11, 11, 8)
+                    for name in sorted(CFGS)]
     jm = __graft_entry__._build_model(tiny=True)
     cm = build_network(jm.model_cfg, num_class=18, device="cpu")
     sb = synthetic_batch(np.random.RandomState(0), batch_size=1,
@@ -154,7 +156,7 @@ def test_cagroup3d_after_the_zoo_keeps_default_bits():
 
 @pytest.mark.parametrize("name", sorted(YAMLS))
 def test_dist_raises(name, monkeypatch):
-    """``--dist`` training no longer raises for the three: with two ranks
+    """``--dist`` training no longer raises for the zoo: with two ranks
     faked in one process (``test_torch_kitti_dist.collective_order``),
     each model's training forward issues one cross-rank BN sum a BN, in
     the same numbered order as either rank, and its backward the reverse
