@@ -11,10 +11,12 @@ from .detectors.centerpoint import CenterPoint
 from .detectors.rbgnet import RBGNet
 from .detectors.second_net import PointPillar, SECONDNet
 from .detectors.second_net_iou import SECONDNetIoU
+from .detectors.voxel_rcnn import VoxelRCNN
 
 DETECTORS = {"CAGroup3D": CAGroup3D, "RBGNet": RBGNet,
              "SECONDNet": SECONDNet, "PointPillar": PointPillar,
-             "SECONDNetIoU": SECONDNetIoU, "CenterPoint": CenterPoint}
+             "SECONDNetIoU": SECONDNetIoU, "CenterPoint": CenterPoint,
+             "VoxelRCNN": VoxelRCNN}
 
 
 def load_model_config(cfg_path: str):
@@ -34,9 +36,8 @@ def build_network(model_cfg, num_class: int,
                   device=None, dataset=None
                   ) -> Union[CAGroup3D, RBGNet, SECONDNet]:
     """Build the detector named by ``model_cfg.NAME`` (CAGroup3D, RBGNet,
-    SECONDNet, PointPillar, SECONDNetIoU or CenterPoint) with a seeded init
-    (``generator``; seed 0 when None) on
-    ``device`` (the GPU unless the caller passes another device; there is
+    SECONDNet, PointPillar, SECONDNetIoU, CenterPoint or VoxelRCNN) with
+    a seeded init (``generator``; seed 0 when None) on ``device`` (the GPU unless the caller passes another device; there is
     no CPU fallback).  ``dataset`` (a dataset, or
     ``detectors.detector3d_template.dataset_meta`` of its config) gives the
     outdoor detectors what they read of the data: the point-cloud range,

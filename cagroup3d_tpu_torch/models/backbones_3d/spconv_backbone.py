@@ -86,6 +86,10 @@ class VoxelBackBone8x(nn.Module):
         if caps:
             self.caps.update({int(k): int(v) for k, v in dict(caps).items()})
         self.num_point_features = 128
+        self.backbone_channels = {"x_conv1": 16, "x_conv2": 32,
+                                  "x_conv3": 64, "x_conv4": 64}
+        self.multi_scale_3d_strides = {"x_conv1": 1, "x_conv2": 2,
+                                       "x_conv3": 4, "x_conv4": 8}
         # spconv's sparse_shape adds 1 to z (spconv_backbone.py:75); the
         # extents, in (x, y, z), bound each level's lattice
         self.extents = None
@@ -124,7 +128,8 @@ class VoxelBackBone8x(nn.Module):
     def forward(self, P: Params, S: Params, ctx: Ctx, st: SparseTensor,
                 prefix: str = "backbone_3d") -> Dict:
         """st: the stride-1 voxel tensor.  Returns the final z-compressed
-        level and the per-level tensors, as the JAX package does."""
+        level, the per-level tensors and their strides, as the JAX package
+        does."""
         pre, caps, ext = prefix, self.caps, self.extents or {}
         x = self._bn_relu(P, S, ctx, pre + ".conv_input.1",
                           subm(P, ctx, pre + ".conv_input.0", st, 3))
@@ -158,4 +163,5 @@ class VoxelBackBone8x(nn.Module):
         return dict(encoded_spconv_tensor=out,
                     encoded_spconv_tensor_stride=8,
                     multi_scale_3d_features=dict(x_conv1=x1, x_conv2=x2,
-                                                 x_conv3=x3, x_conv4=x4))
+                                                 x_conv3=x3, x_conv4=x4),
+                    multi_scale_3d_strides=self.multi_scale_3d_strides)

@@ -32,6 +32,7 @@ from ..dense_heads.anchor_head import AnchorHeadSingle
 from ..dense_heads.anchor_head_multi import AnchorHeadMulti
 from ..dense_heads.center_head import CenterHead
 from ..roi_heads.second_head import SECONDHead
+from ..roi_heads.voxelrcnn_head import VoxelRCNNHead
 
 VFES = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE}
 BACKBONES_3D = {"VoxelBackBone8x": VoxelBackBone8x}
@@ -40,7 +41,7 @@ MAPS_TO_BEV = {"HeightCompression": HeightCompression,
 BACKBONES_2D = {"BaseBEVBackbone": BaseBEVBackbone}
 DENSE_HEADS = {"AnchorHeadSingle": AnchorHeadSingle,
                "AnchorHeadMulti": AnchorHeadMulti, "CenterHead": CenterHead}
-ROI_HEADS = {"SECONDHead": SECONDHead}
+ROI_HEADS = {"SECONDHead": SECONDHead, "VoxelRCNNHead": VoxelRCNNHead}
 DEFAULT_KEY_BITS = (10, 10, 10)
 VOXEL_PROCESSORS = ("transform_points_to_voxels",
                     "transform_points_to_voxels_placeholder",
@@ -145,10 +146,14 @@ class Detector3DTemplate(nn.Module):
             input_channels=self.backbone_2d.num_bev_features, generator=gen,
             post_cfg=c.get("POST_PROCESSING", None), **kw)
         if c.get("ROI_HEAD", None) is not None:
-            self.roi_head = _registry(ROI_HEADS, "ROI_HEAD", c.ROI_HEAD.NAME)(
-                c.ROI_HEAD, num_class=self.num_class,
-                input_channels=self.backbone_2d.num_bev_features,
-                generator=gen)
+            self.roi_head = self.build_roi_head(gen)
+
+    def build_roi_head(self, gen):
+        """The RoI head of ``MODEL.ROI_HEAD`` over the 2-D backbone's map."""
+        c = self.model_cfg.ROI_HEAD
+        return _registry(ROI_HEADS, "ROI_HEAD", c.NAME)(
+            c, num_class=self.num_class,
+            input_channels=self.backbone_2d.num_bev_features, generator=gen)
 
     def load_jax_params(self, P, S=None) -> None:
         """``core.module.load_jax_params`` into this model."""

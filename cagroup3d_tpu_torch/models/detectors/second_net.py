@@ -109,8 +109,13 @@ class SECONDNet(Detector3DTemplate):
         st = self.vfe(ctx, points, pvalid, self.voxel_size,
                       self.point_cloud_range, self.input_cap)
         if self.backbone_3d is not None:
-            st = self.backbone_3d(P, S, ctx, st)["encoded_spconv_tensor"]
+            st = self.sparse_backbone(P, S, ctx, st)
         return self.map_to_bev_module(st, self.final_grid())
+
+    def sparse_backbone(self, P, S, ctx: Ctx, st):
+        """The sparse backbone's final (z-compressed) level of one scene's
+        voxels ``st``."""
+        return self.backbone_3d(P, S, ctx, st)["encoded_spconv_tensor"]
 
     def train_maps(self, batch: Dict, generator: torch.Generator,
                    group=None):

@@ -63,9 +63,8 @@ class SECONDNetIoU(SECONDNet):
         props = [self.proposals({k: v[i] for k, v in outs.items()}, True)
                  for i in range(len(ctxs))]
         rctx = Ctx(train=True, sync=sync)
-        roi_out = self.roi_head.forward_train(
-            P, S, rctx, ctxs, props, gt_boxes, gt_labels, gt_valid, bev2d,
-            self.point_cloud_range, self.voxel_size, draws=roi_draws)
+        roi_out = self.roi_train(P, S, rctx, ctxs, props, gt_boxes,
+                                 gt_labels, gt_valid, bev2d, roi_draws)
         updates.update(rctx.updates)
         loss_rpn, tb = self.dense_head.loss(outs, gt_boxes,
                                             gt_labels.to(torch.int64),
@@ -73,6 +72,14 @@ class SECONDNetIoU(SECONDNet):
         loss_rcnn, tb_r = self.roi_head.loss(roi_out, group=group)
         tb.update(tb_r)
         return loss_rpn + loss_rcnn, tb, updates
+
+    def roi_train(self, P, S, rctx: Ctx, ctxs, props, gt_boxes, gt_labels,
+                  gt_valid, bev2d, roi_draws):
+        """The RoI head's training forward over the batch (its BN updates
+        into ``rctx``): the loss's inputs."""
+        return self.roi_head.forward_train(
+            P, S, rctx, ctxs, props, gt_boxes, gt_labels, gt_valid, bev2d,
+            self.point_cloud_range, self.voxel_size, draws=roi_draws)
 
     def fused_scores(self, iou_s, cls_s, labels, boxes, points, pvalid):
         """The proposals' scores by ``SCORE_TYPE`` (second_net_iou.py's

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.geometry import _max0, iou3d_aligned, iou3d_rotated
+from ..core.geometry import (_max0, boxes_to_corners_3d, iou3d_aligned,
+                             iou3d_rotated)
 
 _EPS = float(torch.finfo(torch.float32).eps)
 
@@ -179,3 +180,18 @@ def focal_loss_centernet(pred, gt, mask=None, n_pos=None):
     return torch.where(n_pos > 0,
                        -(pos_loss.sum() + neg_loss.sum()) /
                        n_pos.clamp(min=1.0), -neg_loss.sum())
+
+
+def get_corner_loss_lidar(pred7: torch.Tensor, gt7: torch.Tensor,
+                          beta: float = 1.0) -> torch.Tensor:
+    """The corner loss (the reference's loss_utils.get_corner_loss_lidar):
+    per box, the mean over its 8 corners of the smooth-L1 (``beta``) of
+    the corner distance to the GT box's or to the GT box turned by pi,
+    whichever is less.  Returns [N]."""
+    pc = boxes_to_corners_3d(pred7)
+    gt_flip = torch.cat([gt7[:, :6], gt7[:, 6:7] + torch.pi], -1)
+    d = torch.minimum(
+        torch.linalg.vector_norm(pc - boxes_to_corners_3d(gt7), dim=-1),
+        torch.linalg.vector_norm(pc - boxes_to_corners_3d(gt_flip), dim=-1))
+    loss = torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+    return loss.mean(dim=1)

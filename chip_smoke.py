@@ -123,7 +123,7 @@ after it.
    on the CPU in the same setting (``JAX_LEARN_DROP``, ``JAX_LEARN_DROP_YAW``
    from ``tests/learn_margin.py [--yaw]``).  Like every learn phase it
    runs at the end, beside the dist phase, in a process of its own
-   (``LearnJobs``: ``python3 chip_smoke.py --learn <job>``), and its line
+   (``SideJobs``: ``python3 chip_smoke.py --job <job> <tree>``), and its line
    is printed after the dist phase's.
 
 Then RBGNet (tools/cfgs/{scannet,sunrgbd}_models/RBGNet.yaml; lines
@@ -150,7 +150,7 @@ rbgnet-train-cli -- the ``train`` CLI for one epoch over an 8-scene tree
 rbgnet-reference -- the tiny configuration (``TINY_RBG``), card against
    CPU, stage by stage on the same inputs at phase 7's bars, discrete
    steps that part the devices counted (``phase_rbg_reference``).
-rbgnet-learn -- (at the end, ``LearnJobs``) the tiny configuration on
+rbgnet-learn -- (at the end, ``SideJobs``) the tiny configuration on
    one fixed B = 2 batch, 60 steps: the drop of the loss's ungated part (``rbg_drop`` of
    ``rbg_learn_loss``: 1 - the median of the second half / the first) at
    least nine tenths of the JAX package's (``JAX_LEARN_DROP_RBG``,
@@ -206,8 +206,12 @@ second-train-cli -- the ``train`` CLI for an epoch and a resumed second,
 Then, on the same train tree, the rest of KITTI's SECOND family
 (``run_zoo_path``; lines tagged ``"config": "kitti_pointpillar"``,
 ``"kitti_second_multihead"``, ``"kitti_second_iou"``,
-``"kitti_centerpoint"``), for each of pointpillar.yaml,
-second_multihead.yaml, second_iou.yaml and centerpoint.yaml:
+``"kitti_centerpoint"``, ``"kitti_voxel_rcnn_car"``), for each of
+pointpillar.yaml, second_multihead.yaml, second_iou.yaml, centerpoint.yaml
+and voxel_rcnn_car.yaml (ZOO_SIDE's, Voxel R-CNN's: its zoo-reference
+and CLIs in a process of its own beside the dist phase, ``SideJobs``, on
+a tree of its own, and its timed phases and ``grad-bits`` after that
+phase, with the card to themselves):
 zoo-requests -- the YAML's full-width model (seeded, prior lifted) with
    its own dataset config: a warm-up frame records every K1 call (the
    SECOND variants and CenterPoint 11 at (11, 11, 8); PointPillar none),
@@ -219,18 +223,22 @@ zoo-reference -- the tiny model (``tiny_zoo_config``) card against CPU:
    eval stages on the CPU's inputs (BEV map, 2-D backbone, head, then
    the prediction on seeded class logits), then one B = 2 training step
    (the loss within 1e-3, phase 10's gradient bars; the CPU's IoU
-   matrices and, for SECOND-IoU, its proposals handed to the card).
+   matrices and, for SECOND-IoU and Voxel R-CNN, its proposals handed to
+   the card; Voxel R-CNN's prediction reads the CPU's sparse levels).
 zoo-train -- one full-width B = 4 ``make_train_step`` step through
    KittiDataset in train mode with the YAML's DATA_CONFIG: ms/step, peak
-   GB, launches (K1 21 and K3 11 a scene for the SECOND variants and
-   CenterPoint), every K1 and K3 call replayed against its plain version
-   (``k3`` lines); the loss finite with a box term, every parameter and
-   buffer moved; SECOND-IoU's training proposals' ms a scene.
-   CenterPoint then runs ``grad-bits`` as SECOND does.
-zoo-train-cli -- pointpillar.yaml's and centerpoint.yaml's ``train`` CLI
-   for an epoch and a resumed second, then the ``test`` CLI (PointPillar:
-   K1 and K3 launch no time; CenterPoint: both launch).
-second-learn -- (at the end, ``LearnJobs``) the tiny SECOND on a 16 x 16
+   GB, launches (K1 21 and K3 11 a scene for the SECOND variants,
+   CenterPoint and Voxel R-CNN), every K1 and K3 call replayed against its
+   plain version (``k3`` lines); the loss finite with a box term, every
+   parameter and buffer moved; SECOND-IoU's and Voxel R-CNN's training
+   proposals' ms a scene.  CenterPoint and Voxel R-CNN then run
+   ``grad-bits`` as SECOND does (Voxel R-CNN's RoI head gathers from the
+   sparse levels, so its gradient reaches K1's backward and K3).
+zoo-train-cli -- pointpillar.yaml's, centerpoint.yaml's and
+   voxel_rcnn_car.yaml's ``train`` CLI at batch 4 for an epoch and a
+   resumed second, then the ``test`` CLI (PointPillar: K1 and K3 launch no
+   time; the others: both launch).
+second-learn -- (at the end, ``SideJobs``) the tiny SECOND on a 16 x 16
    m grid, one fixed B = 2 batch, 30 steps: the loss falls at least nine tenths as far as the JAX
    package's (``JAX_LEARN_DROP_SECOND``, ``tests/learn_margin.py
    --second``).
@@ -243,8 +251,8 @@ dist -- two ranks spawned over gloo (NCCL takes one rank a card), each
    scenes on the same parameters, batch and generator: the ScanNet YAML's
    full-width CAGroup3D, the tiny SUN RGB-D CAGroup3D, the tiny SUN
    RGB-D RBGNet, and the tiny SECOND, PointPillar, SECOND-multihead,
-   SECOND-IoU and CenterPoint on KITTI's range (``DIST_CASES``, one
-   spawn).  Held: the
+   SECOND-IoU, CenterPoint and Voxel R-CNN on KITTI's range
+   (``DIST_CASES``, one spawn).  Held: the
    first step's loss and every tb term within 1e-5 relative, the ranks'
    parameters and BN buffers the same bits after two steps, every
    module's gradients within phase 10's bars, K1 and K3 launched in each
@@ -1616,6 +1624,7 @@ class TrainCliRecording:
 
     def __init__(self):
         self.steps, self.loaders, self.models = [], [], []
+        self.box_sizes = []
         self.saved = None
 
     def start(self):
@@ -1631,12 +1640,15 @@ class TrainCliRecording:
 
             def timed(batch, cur_epoch=0.0):
                 torch.cuda.synchronize()
+                n0 = len(self.box_sizes)
                 t0 = time.perf_counter()
                 loss, tb = step(batch, cur_epoch)
                 torch.cuda.synchronize()
+                sizes = self.box_sizes[n0:]
                 self.steps.append(dict(
                     ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
-                    tb={k: float(v) for k, v in tb.items()}))
+                    tb={k: float(v) for k, v in tb.items()},
+                    box_size=max(sizes) if sizes else None))
                 return loss, tb
             return timed
 
@@ -1647,11 +1659,23 @@ class TrainCliRecording:
 
         def recording_net(*a, **kw):
             self.models.append(build_net(*a, **kw))
+            head = getattr(self.models[-1], "dense_head", None)
+            if hasattr(head, "decoded_boxes"):
+                head.decoded_boxes = self.watch_boxes(head.decoded_boxes)
             return self.models[-1]
 
         train_loop.make_train_step = recorded_step
         cli.build_dataloader, cli.build_network = (recording_loader,
                                                    recording_net)
+
+    def watch_boxes(self, decoded_boxes):
+        """``decoded_boxes`` that also records the largest size (l, w or h)
+        of the boxes it decodes: the proposals' of a two-stage model."""
+        def watched(out):
+            boxes, scores = decoded_boxes(out)
+            self.box_sizes.append(float(boxes[..., 3:6].abs().max()))
+            return boxes, scores
+        return watched
 
     def stop(self):
         """Put the CLI's functions back (a no-op unless started)."""
@@ -1951,7 +1975,7 @@ def phase_demo(model, mc, dev, gpu, power, path):
 
 def run_path(dev, gpu, power, path):
     """Phases 3-10 (with 7b and 7c) on one configuration at full width
-    (phase 11 runs at the end, ``LearnJobs``).  Returns what the
+    (phase 11 runs at the end, ``SideJobs``).  Returns what the
     ``kernels`` line needs."""
     import torch
     from cagroup3d_tpu_torch.models.model_utils.cagroup_utils import \
@@ -2376,7 +2400,7 @@ def phase_rbg_learn(dev, path):
 
 def run_rbg_path(dev, gpu, power, path):
     """RBGNet's phases on one configuration at full width (``rbgnet-learn``
-    runs at the end, ``LearnJobs``).  Returns the kernels' launches summed
+    runs at the end, ``SideJobs``).  Returns the kernels' launches summed
     over its runs (all 0)."""
     import torch
     model = rbg_model(path.cfg.MODEL, path.n_cls, dev, seed=0)
@@ -3154,19 +3178,30 @@ def phase_second_train_cli(dev, gpu, power, cfg, tree, cfg_path=KITTI_CFG,
                            kernels=True):
     """second-train-cli (and ``zoo-train-cli`` for another KITTI YAML at
     ``cfg_path``, ``tag``; without ``kernels`` K1 and K3 must launch no
-    time): the ``train`` CLI in this process on ``tree``
-    (one batch of train frames) at the YAML's full width and batch,
+    time): the ``train`` CLI in this process on ``tree`` (ZOO_TRAIN_B
+    train frames) at the YAML's full width and BATCH_SIZE_PER_GPU,
     ``--epochs 1`` and then ``--epochs 2``, which must resume from
     ``checkpoint_epoch_1.pkl`` (the optimizer's count restored); then the
     ``test`` CLI on ``checkpoint_epoch_2.pkl`` over the tree's val split.
-    Held: every step's loss finite, two steps, the checkpoints' epoch and
-    it, the resume logged, K1 and K3 launched in the steps and K1 in the
-    evaluation, the metrics finite.  Printed: ms per step (the wait for
-    the loader plus the synchronized step), the loader's share and the
-    peak GB of the training calls.  Returns the steps' launches."""
+    Held: the steps of two epochs, the checkpoints' epoch and it, the
+    resume logged, K1 and K3 launched in the steps and K1 in the
+    evaluation, the metrics finite, and every step's loss finite, the
+    first step's always and a later one's unless its proposals (the
+    anchor head's decoded boxes, ``TrainCliRecording.watch_boxes``) were
+    already larger than the point-cloud range: the two calls compress the
+    YAML's one-cycle into two and four steps, so the first step takes the
+    peak learning rate, and at voxel_rcnn_car.yaml's batch of 2 the
+    anchor head's boxes leave the range after one step and the loss
+    follows them, in the JAX package as in the port
+    (``tests/voxel_rcnn_onecycle.py``).  Printed: ms per step (the wait
+    for the loader plus the synchronized step), the loader's share, the
+    peak GB of the training calls and each step's largest proposal.
+    Returns the steps' launches."""
     import tempfile
     import numpy as np
     t_phase, bad = time.time(), []
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    per_epoch = ZOO_TRAIN_B // batch
     with tempfile.TemporaryDirectory(prefix="chip_smoke_second_cli_") as tmp:
         run = run_train_cli(tmp, cfg_path,
                             ["--set", "DATA_CONFIG.DATA_PATH", tree])
@@ -3174,13 +3209,18 @@ def phase_second_train_cli(dev, gpu, power, cfg, tree, cfg_path=KITTI_CFG,
                                               "ret"))
     train_launches, eval_launches = run["train_launches"], \
         run["eval_launches"]
-    if len(rec.steps) != 2 or not all(
-            np.isfinite([s["loss"], *s["tb"].values()]).all()
-            for s in rec.steps):
-        bad.append(f"{len(rec.steps)} steps, or a non-finite loss")
+    extent = float(np.ptp(np.reshape(cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                     (2, 3)), axis=0).max())
+    if len(rec.steps) != 2 * per_epoch:
+        bad.append(f"{len(rec.steps)} steps, not {2 * per_epoch}")
+    for i, s in enumerate(rec.steps):
+        if not np.isfinite([s["loss"], *s["tb"].values()]).all() and (
+                i == 0 or s["box_size"] is None or s["box_size"] <= extent):
+            bad.append(f"step {i}'s loss is not finite (its largest "
+                       f"proposal {s['box_size']} m)")
     its = {e: (c["epoch"], c["it"], c["opt_state"]["count"])
            for e, c in ckpts.items()}
-    if its != {1: (1, 1, 1), 2: (2, 2, 2)}:
+    if its != {e: (e, e * per_epoch, e * per_epoch) for e in (1, 2)}:
         bad.append(f"checkpoint (epoch, it, count): {its}")
     if re.search(r"auto-resuming from \S*checkpoint_epoch_1\.pkl "
                  r"\(epoch 1\)", logs) is None:
@@ -3195,11 +3235,12 @@ def phase_second_train_cli(dev, gpu, power, cfg, tree, cfg_path=KITTI_CFG,
     waits = [w * 1e3 for ld in rec.loaders for w in ld.waits]
     ms = [w + s["ms"] for w, s in zip(waits, rec.steps)]
     emit({"phase": phase, **tag, "ok": not bad,
-          "gpu": gpu, "power_limit": power,
-          "batch_size": int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
+          "gpu": gpu, "power_limit": power, "batch_size": batch,
           "ms_per_step": ms, "loader_share": sum(waits) / sum(ms)
           if ms else None, "peak_memory_gb": run["peak_gb"],
-          "losses": [s["loss"] for s in rec.steps], "checkpoints": its,
+          "losses": [s["loss"] for s in rec.steps],
+          "proposal_sizes": [s["box_size"] for s in rec.steps],
+          "range_extent": extent, "checkpoints": its,
           "train_launches": train_launches, "eval_launches": eval_launches,
           "Car_3d/moderate_R40": float(ret.get("Car_3d/moderate_R40",
                                                float("nan"))),
@@ -3278,14 +3319,26 @@ def phase_bits_after_second(dev):
 # (SECONDHead)
 # ---------------------------------------------------------------------------
 
-ZOO = ("pointpillar", "second_multihead", "second_iou", "centerpoint")
+ZOO = ("pointpillar", "second_multihead", "second_iou", "centerpoint",
+       "voxel_rcnn_car")
 ZOO_CFGS = {n: os.path.join(HERE, "tools", "cfgs", "kitti_models",
                             f"{n}.yaml") for n in ZOO}
 ZOO_K1_PER_SCENE = {"pointpillar": 0, "second_multihead": 11,
-                    "second_iou": 11, "centerpoint": 11}
+                    "second_iou": 11, "centerpoint": 11,
+                    "voxel_rcnn_car": 11}
 ZOO_FRAMES = 2          # timed eval frames a model (the first warms up too)
-ZOO_CLI = ("pointpillar", "centerpoint")  # the YAMLs whose CLIs run
-GRAD_BITS = ("centerpoint",)    # the zoo YAMLs of the grad-bits phase
+# the train frames of the KITTI tree and the scenes of a zoo model's
+# training step and grad-bits run: the YAMLs' BATCH_SIZE_PER_GPU but
+# voxel_rcnn_car.yaml's (2; its train CLI runs at 2)
+ZOO_TRAIN_B = 4
+# the zoo YAMLs whose zoo-reference and CLIs run in a process of their own
+# beside the dist phase (``SideJobs``; their steps' 9000-candidate training
+# proposals are host-bound), their timed phases and grad-bits after it
+ZOO_SIDE = ("voxel_rcnn_car",)
+# the YAMLs whose CLIs run
+ZOO_CLI = ("pointpillar", "centerpoint", "voxel_rcnn_car")
+# the zoo YAMLs of the grad-bits phase
+GRAD_BITS = ("centerpoint", "voxel_rcnn_car")
 ZOO_TRAIN_FRAME_POINTS = 20_000     # zoo-reference's frames
 
 
@@ -3316,6 +3369,8 @@ def tiny_zoo_config(name, cfg):
         mc.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE = 128
         mc.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.update(
             NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=64)
+    elif name == "voxel_rcnn_car":
+        tiny_voxel_rcnn_head(mc.ROI_HEAD, 16, 32)
     else:
         mc.ROI_HEAD.update(SHARED_FC=[32, 32], IOU_FC=[32])
         mc.ROI_HEAD.ROI_GRID_POOL.IN_CHANNEL = sum(
@@ -3326,6 +3381,21 @@ def tiny_zoo_config(name, cfg):
         mc.ROI_HEAD.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=256,
                                            NMS_POST_MAXSIZE=32)
     return mc
+
+
+def tiny_voxel_rcnn_head(rc, width, rois):
+    """voxel_rcnn_car.yaml's ROI_HEAD ``rc`` at tiny widths, in place: FC
+    layers and pools ``width`` wide, a 4^3 grid, 8 offsets a pool, ``rois``
+    sampled RoIs a scene and short proposal lists."""
+    rc.update(SHARED_FC=[2 * width] * 2, CLS_FC=[2 * width],
+              REG_FC=[2 * width])
+    rc.ROI_GRID_POOL.GRID_SIZE = 4
+    for lc in rc.ROI_GRID_POOL.POOL_LAYERS.values():
+        lc.update(MLPS=[[width, width]], NSAMPLE=[8])
+    rc.TARGET_CONFIG.ROI_PER_IMAGE = rois
+    rc.NMS_CONFIG.TRAIN.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=64)
+    rc.NMS_CONFIG.TEST.update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=32)
+    return rc
 
 
 def zoo_model(name, cfg, dev, seed, tiny=False, lift=True):
@@ -3511,8 +3581,9 @@ def phase_zoo_reference(dev, name, cfg):
     holds it; PointPillar's f32 pillars within 1e-4), the 2-D backbone and
     every head output within 1e-3; on the CPU's head outputs with seeded
     class logits the predictions (SECOND-IoU: proposals, IoU head, score
-    fusion, NMS) with labels and valid masks exact, boxes within 1e-2,
-    scores within 1e-3.  Then one training step (B = 2 frames of 20k
+    fusion, NMS; Voxel R-CNN: proposals, the RoI grid pool from the CPU's
+    sparse levels, the trunk, NMS) with labels and valid masks exact,
+    boxes within 1e-2, scores within 1e-3.  Then one training step (B = 2 frames of 20k
     points): the assigner's IoU matrices within 1e-4 and the card's step
     reading the CPU's (ties, see ``second-train-reference``), SECOND-IoU's
     card step reading the CPU's training proposals (its dropout and RoI
@@ -3520,6 +3591,7 @@ def phase_zoo_reference(dev, name, cfg):
     1e-3 relative and each module's gradients within phase 10's bars."""
     import torch
     from cagroup3d_tpu_torch.core.module import Ctx, flat_state
+    from cagroup3d_tpu_torch.core.sparse import SparseTensor
     tag = zoo_tag(name)
     cpu = zoo_model(name, cfg, "cpu", seed=1, tiny=True)
     gpu_m = copy.deepcopy(cpu).to(dev)
@@ -3528,10 +3600,15 @@ def phase_zoo_reference(dev, name, cfg):
     Pc, Sc = flat_state(cpu)
     Pg, Sg = flat_state(gpu_m)
     pts, pv = req["points"][0], req["points_valid"][0]
+    ctx_c, ctx_g = Ctx(), Ctx()
     with torch.no_grad():
         with cpu.bits_scope():
-            bev_c = cpu.bev_map(Pc, Sc, Ctx(), pts, pv)
-            bev_g = gpu_m.bev_map(Pg, Sg, Ctx(), pts.to(dev), pv.to(dev))
+            bev_c = cpu.bev_map(Pc, Sc, ctx_c, pts, pv)
+            bev_g = gpu_m.bev_map(Pg, Sg, ctx_g, pts.to(dev), pv.to(dev))
+        if hasattr(ctx_c, "multi_scale_3d"):    # Voxel R-CNN: the CPU's levels
+            ctx_g.multi_scale_3d = {k: SparseTensor(
+                st.coords.to(dev), st.feats.to(dev), st.valid.to(dev),
+                st.stride) for k, st in ctx_c.multi_scale_3d.items()}
         stages["bev"] = rel_err(bev_g.cpu(), bev_c)
         b2c = cpu.backbone_2d(Pc, Sc, bev_c)
         b2g = gpu_m.backbone_2d(Pg, Sg, bev_c.to(dev))
@@ -3542,10 +3619,11 @@ def phase_zoo_reference(dev, name, cfg):
         gen = torch.Generator().manual_seed(0)
         hc = {k: torch.randn(v.shape, generator=gen) * 2
               if score_map(k) else v for k, v in hc.items()}
-        pc = cpu.predict(Pc, Sc, Ctx(), hc, b2c, pts, pv)
-        pg = gpu_m.predict(Pg, Sg, Ctx(), {k: v.to(dev) for k, v in
-                                           hc.items()}, b2c.to(dev),
-                           pts.to(dev), pv.to(dev))
+        with cpu.bits_scope():
+            pc = cpu.predict(Pc, Sc, ctx_c, hc, b2c, pts, pv)
+            pg = gpu_m.predict(Pg, Sg, ctx_g, {k: v.to(dev) for k, v in
+                                               hc.items()}, b2c.to(dev),
+                               pts.to(dev), pv.to(dev))
     names = ("boxes", "scores", "labels", "valid")
     stages["predict"] = agree(dict(zip(names, pg)), dict(zip(names, pc)),
                               ("labels", "valid"), ("boxes",))
@@ -3614,7 +3692,8 @@ def phase_zoo_reference(dev, name, cfg):
 
 def phase_zoo_train(dev, gpu, power, name, cfg, tree):
     """zoo-train: the YAML's full-width model (seeded, as users build it)
-    trained at its BATCH_SIZE_PER_GPU of 4 on the frames of ``tree``
+    trained at ZOO_TRAIN_B = 4 scenes (the YAMLs' BATCH_SIZE_PER_GPU,
+    voxel_rcnn_car.yaml's 2) on the frames of ``tree``
     through ``KittiDataset`` in train mode with the YAML's DATA_CONFIG.
     One synchronized ``make_train_step`` step (adam_onecycle), launch
     counters reset before it: ms/step, the peak GB, the launches
@@ -3623,9 +3702,10 @@ def phase_zoo_train(dev, gpu, power, name, cfg, tree):
     every parameter and BN buffer moved.  The step records every K1 call
     (forward and feature backward) and every K3 call, each replayed after
     it against its plain version at (11, 11, 8) with phase 8's bars.
-    SECOND-IoU: the ms of each scene's training proposals (the top 9000
-    anchors, NMS at 0.8, 512 kept) inside the step.  Returns (K1 totals,
-    K3 totals, launches); the totals are None without calls."""
+    SECOND-IoU and Voxel R-CNN: the ms of each scene's training
+    proposals (the top 9000 anchors, NMS at 0.8, 512 kept) inside the
+    step.  Returns (K1 totals, K3 totals, launches); the totals are None
+    without calls."""
     import numpy as np
     import torch
     import cagroup3d_tpu_torch.models.backbones_3d.spconv_backbone as sb
@@ -3640,7 +3720,7 @@ def phase_zoo_train(dev, gpu, power, name, cfg, tree):
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
     t_phase, bad, tag = time.time(), [], zoo_tag(name)
     names = list(cfg.CLASS_NAMES)
-    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    B = ZOO_TRAIN_B
     dc = copy.deepcopy(cfg.DATA_CONFIG)
     dc.DATA_PATH = tree
     np.random.seed(0)
@@ -3776,7 +3856,7 @@ def phase_grad_bits(dev, gpu, power, name, cfg, tree):
     t_phase = time.time()
     dc = copy.deepcopy(cfg.DATA_CONFIG)
     dc.DATA_PATH = tree
-    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    B = ZOO_TRAIN_B
     np.random.seed(0)
     _, loader, _ = build_dataloader(dc, list(cfg.CLASS_NAMES), B,
                                     training=True)
@@ -3835,49 +3915,64 @@ def phase_grad_bits(dev, gpu, power, name, cfg, tree):
                           f"device memory")
 
 
-def run_zoo_path(dev, gpu, power, tree):
-    """The zoo's phases, model by model (``zoo-requests``,
-    ``zoo-reference``, ``zoo-train``), then the ``train`` and ``test``
-    CLIs of ZOO_CLI's YAMLs on ``tree`` (``zoo-train-cli``).  Returns what
-    the ``kernels`` line needs."""
+def run_zoo_model(dev, gpu, power, name, tree, part="all"):
+    """The zoo phases of the YAML ``name`` on ``tree``: ``zoo-requests``,
+    ``zoo-reference``, ``zoo-train``, ``grad-bits`` if in GRAD_BITS, then
+    its ``train`` and ``test`` CLIs if in ZOO_CLI (``zoo-train-cli``).
+    ``part`` "side" runs only ``zoo-reference`` and the CLIs (ZOO_SIDE's,
+    beside the dist phase), "timed" only the others (after it, with the
+    card to themselves).  Returns what the ``kernels`` line needs."""
     from cagroup3d_tpu_torch.models import load_config
+    cfg = load_config(ZOO_CFGS[name])
     out = {}
-    for name in ZOO:
-        cfg = load_config(ZOO_CFGS[name])
-        forms, launches = phase_zoo_requests(dev, gpu, power, name, cfg)
+    if part != "side":
+        forms, out["launches"] = phase_zoo_requests(dev, gpu, power, name,
+                                                    cfg)
+        out["k1_eval"] = total(forms) if forms else None
+    if part != "timed":
         phase_zoo_reference(dev, name, cfg)
-        k1_train, k3_train, train_launches = phase_zoo_train(
-            dev, gpu, power, name, cfg, tree)
+    if part != "side":
+        out["k1_train"], out["k3_train"], out["train_launches"] = \
+            phase_zoo_train(dev, gpu, power, name, cfg, tree)
         if name in GRAD_BITS:
             phase_grad_bits(dev, gpu, power, name, cfg, tree)
-        out[name] = dict(k1_eval=total(forms) if forms else None,
-                         k1_train=k1_train, k3_train=k3_train,
-                         launches=launches, train_launches=train_launches)
-    for name in ZOO_CLI:
-        cfg = load_config(ZOO_CFGS[name])
-        out[name]["cli_train_launches"] = phase_second_train_cli(
+    if part != "timed" and name in ZOO_CLI:
+        out["cli_train_launches"] = phase_second_train_cli(
             dev, gpu, power, cfg, tree, cfg_path=ZOO_CFGS[name],
             tag=zoo_tag(name), phase="zoo-train-cli",
             kernels=bool(ZOO_K1_PER_SCENE[name]))
     return out
 
 
+def run_zoo_path(dev, gpu, power, tree):
+    """The zoo's phases on ``tree``, model by model (``run_zoo_model``),
+    but ZOO_SIDE's, which run around the dist phase.  Returns what the
+    ``kernels`` line needs."""
+    return {name: run_zoo_model(dev, gpu, power, name, tree)
+            for name in ZOO if name not in ZOO_SIDE}
+
+
+def write_train_tree(tree):
+    """The raw KITTI tree of one batch of train frames that SECOND's and the
+    zoo's training phases read."""
+    from cagroup3d_tpu_torch.utils.synthetic import write_kitti_tree
+    write_kitti_tree(tree, ZOO_TRAIN_B, n_points=SECOND_TRAIN_POINTS,
+                     seed=3, n_train=ZOO_TRAIN_B)
+
+
 def run_kitti_path(dev, gpu, power):
     """The SECOND phases on KITTI (eval, then training on a tree of one
-    batch of train frames), the zoo's phases on that tree
-    (``run_zoo_path``), then the CAGroup3D bits check.  Returns what the
-    ``kernels`` line needs."""
+    batch of train frames, ``write_train_tree``), the zoo's phases on that
+    tree (``run_zoo_path``), then the CAGroup3D bits check.  Returns what
+    the ``kernels`` line needs."""
     import tempfile
-    from cagroup3d_tpu_torch.utils.synthetic import write_kitti_tree
     cfg = kitti_config()
     forms, k1_eval, launches = phase_second_requests(dev, gpu, power, cfg)
     phase_second_reference(dev, cfg)
     cli_launches = phase_second_test_cli(dev, gpu, power, cfg)
-    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_train_") as d:
         tree = os.path.join(d, "kitti")
-        write_kitti_tree(tree, B, n_points=SECOND_TRAIN_POINTS, seed=3,
-                         n_train=B)
+        write_train_tree(tree)
         k1_train, k3_train, train_launches = phase_second_train(
             dev, gpu, power, cfg, tree)
         phase_grad_bits(dev, gpu, power, "second", cfg, tree)
@@ -4196,7 +4291,7 @@ def dist_step_compare(specs, out_dir, world=2, noise=False):
 
 # the dist phase's comparisons: (name, spec) over two ranks on the card
 KITTI_DIST = ("second", "pointpillar", "second_multihead", "second_iou",
-              "centerpoint")
+              "centerpoint", "voxel_rcnn_car")
 DIST_CASES = (
     ("scannet", dict(kind="cagroup3d", cfg=CFGS["scannet"], tiny=False)),
     ("sunrgbd_tiny", dict(kind="cagroup3d", cfg=CFGS["sunrgbd"], tiny=True)),
@@ -4422,13 +4517,14 @@ class DistCli:
 
 
 # ---------------------------------------------------------------------------
-# the learn phases: loss-only checks bound by the host's Python, each in a
-# process of its own beside the dist phase
+# the side jobs: the learn phases (loss-only checks bound by the host's
+# Python) and ZOO_SIDE's untimed zoo phases, each in a process of its own
+# beside the dist phase
 # ---------------------------------------------------------------------------
 
-LEARN_JOBS = ("scannet", "sunrgbd", "rbgnet_scannet", "rbgnet_sunrgbd",
-              "second")
-LEARN_TIMEOUT_S = 900
+SIDE_JOBS = ("scannet", "sunrgbd", "rbgnet_scannet", "rbgnet_sunrgbd",
+             "second") + tuple(f"zoo_{n}" for n in ZOO_SIDE)
+SIDE_TIMEOUT_S = 900
 
 
 def cagroup_paths():
@@ -4441,10 +4537,13 @@ def rbg_paths():
             RbgPath("sunrgbd", JAX_LEARN_DROP_RBG_YAW))
 
 
-def learn_job(job):
-    """One of LEARN_JOBS in this process (``chip_smoke.py --learn <job>``):
-    phase 11 of a CAGroup3D path, ``rbgnet-learn`` of an RBGNet path
-    (``rbgnet_<dataset>``) or ``second-learn``."""
+def side_job(job, tree):
+    """One of SIDE_JOBS in this process (``chip_smoke.py --job <job>
+    <tree>``): phase 11 of a CAGroup3D path, ``rbgnet-learn`` of an RBGNet
+    path (``rbgnet_<dataset>``), ``second-learn``, or a ZOO_SIDE model's
+    ``zoo-reference`` and CLIs (``zoo_<name>``) on the train tree
+    ``tree``, ending with a ``zoo-job`` line of what the ``kernels`` line
+    needs."""
     import torch
     from cagroup3d_tpu_torch.ops import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4454,6 +4553,11 @@ def learn_job(job):
     dev = torch.device("cuda", 0)
     if job == "second":
         phase_second_learn(dev, kitti_config())
+    elif job.startswith("zoo_"):
+        name = job[len("zoo_"):]
+        gpu, power, _ = device_name()
+        out = run_zoo_model(dev, gpu, power, name, tree, part="side")
+        emit({"phase": "zoo-job", **zoo_tag(name), "result": out})
     elif job.startswith("rbgnet_"):
         (path,) = [p for p in rbg_paths() if p.name == job]
         phase_rbg_learn(dev, path)
@@ -4462,25 +4566,28 @@ def learn_job(job):
         phase_learn(dev, path)
 
 
-class LearnJobs:
-    """The learn phases of every path (phase 11 of both CAGroup3D paths,
-    ``rbgnet-learn`` of both RBGNet paths, ``second-learn``), each in a
-    process of its own started together: they hold only how far a loss
-    falls, the card is mostly idle under their host-bound steps, and in
-    one process they took about two minutes one after another.
-    ``finish()`` waits for them, prints their lines and fails if one
-    failed; ``abort()`` stops them."""
+class SideJobs:
+    """SIDE_JOBS, each in a process of its own started together: the
+    learn phases of every path (phase 11 of both CAGroup3D paths,
+    ``rbgnet-learn`` of both RBGNet paths, ``second-learn``) hold only how
+    far a loss falls, the card is mostly idle under their host-bound
+    steps, and in one process they took about two minutes one after
+    another; ZOO_SIDE's train CLIs are bound by their training proposals'
+    NMS loop on the host.  ``finish()`` waits for them, prints their lines,
+    fails if one failed and returns the ``zoo-job`` results by model;
+    ``abort()`` stops them.  The jobs that train read ``tree``
+    (``write_train_tree``)."""
 
-    def __init__(self):
+    def __init__(self, tree):
         import tempfile
-        self._tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_learn_")
+        self._tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_side_")
         self.runs = []
-        for job in LEARN_JOBS:
+        for job in SIDE_JOBS:
             out = open(os.path.join(self._tmp.name, job + ".out"), "w+")
             err = open(os.path.join(self._tmp.name, job + ".err"), "w+")
             proc = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--learn", job],
-                cwd=HERE, stdout=out, stderr=err)
+                [sys.executable, os.path.abspath(__file__), "--job", job,
+                 tree], cwd=HERE, stdout=out, stderr=err)
             self.runs.append((job, proc, out, err))
 
     def abort(self):
@@ -4492,25 +4599,31 @@ class LearnJobs:
         self._tmp.cleanup()
 
     def finish(self):
-        bad = []
+        bad, results = [], {}
         try:
             for job, proc, out, err in self.runs:
                 try:
-                    rc = proc.wait(timeout=LEARN_TIMEOUT_S)
+                    rc = proc.wait(timeout=SIDE_TIMEOUT_S)
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     rc = proc.wait()
                 out.seek(0)
                 for line in out:
-                    if line.startswith("{"):
-                        emit(json.loads(line))
+                    if not line.startswith("{"):
+                        continue
+                    obj = json.loads(line)
+                    if obj.get("phase") == "zoo-job":
+                        results[job[len("zoo_"):]] = obj["result"]
+                    else:
+                        emit(obj)
                 if rc != 0:
                     err.seek(0)
                     bad.append(f"{job} exited {rc}: {err.read()[-2000:]}")
+            if bad:
+                fail("side-jobs", "; ".join(bad))
         finally:
             self.abort()
-        if bad:
-            fail("learn", "; ".join(bad))
+        return results
 
 
 def zoo_max_abs(z, counter):
@@ -4620,6 +4733,18 @@ def kernel_line(res, rbg, kitti, dist):
     return {"kernels": out}
 
 
+def device_name():
+    """(the card's name, its power limit, the line of ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader``)."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    power = smi[0].split(",")[-1].strip() if smi else "unknown"
+    return torch.cuda.get_device_name(0), power, \
+        smi[0] if smi else "nvidia-smi: no output"
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4637,12 +4762,8 @@ def main():
     dev = torch.device("cuda", 0)
 
     # 1. device ---------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
-    gpu = torch.cuda.get_device_name(0)
-    power = smi[0].split(",")[-1].strip() if smi else "unknown"
+    gpu, power, smi = device_name()
+    print(smi, flush=True)
     emit({"phase": "device", "ok": True, "gpu": gpu, "power_limit": power,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
@@ -4673,14 +4794,22 @@ def main():
     # SECOND on KITTI ------------------------------------------------------
     kitti = run_kitti_path(dev, gpu, power)
     # training over two ranks, and the CLIs with --dist, beside the learn
-    # phases ---------------------------------------------------------------
-    learn = LearnJobs()
-    try:
-        dist = phase_dist(dev, gpu, power)
-    except BaseException:
-        learn.abort()
-        raise
-    learn.finish()
+    # phases and ZOO_SIDE's untimed zoo phases; then ZOO_SIDE's timed ones
+    # and grad-bits, with the card to themselves -----------------------
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_side_") as tmp:
+        tree = os.path.join(tmp, "kitti")
+        write_train_tree(tree)
+        side = SideJobs(tree)
+        try:
+            dist = phase_dist(dev, gpu, power)
+        except BaseException:
+            side.abort()
+            raise
+        side_out = side.finish()
+        for name in ZOO_SIDE:
+            kitti["zoo"][name] = {**side_out[name], **run_zoo_model(
+                dev, gpu, power, name, tree, part="timed")}
     emit(kernel_line(res, rbg, kitti, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
@@ -4689,8 +4818,8 @@ def main():
 
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] == ["--learn"]:
-            sys.exit(learn_job(sys.argv[2]))
+        if sys.argv[1:2] == ["--job"]:
+            sys.exit(side_job(*sys.argv[2:4]))
         sys.exit(main())
     except SystemExit:
         raise

@@ -5,7 +5,8 @@ Run from the repository root on a machine with a CUDA GPU:
 
     python3 profile_port.py [--config scannet|sunrgbd|rbgnet_scannet|
         rbgnet_sunrgbd|kitti_second|kitti_pointpillar|
-        kitti_second_multihead|kitti_second_iou|kitti_centerpoint]
+        kitti_second_multihead|kitti_second_iou|kitti_centerpoint|
+        kitti_voxel_rcnn]
         [--scenes 9]
         [--out profile.json]
 
@@ -80,6 +81,12 @@ a scene, NMS at 0.8) are timed per scene, with the NMS alone
 CenterPoint's ``boxes`` stage is its peak decode (the top 500 peaks) and
 one NMS; its assigner is CenterHead's target assignment (the dense
 gaussian heatmaps and the regression targets of a scene).
+``kitti_voxel_rcnn`` (voxel_rcnn_car.yaml) runs as ``kitti_second_iou``:
+its ``boxes`` stage is the test proposals, the RoI head's refinement and
+its NMS, with ``roi_pool`` (the RoI grid pool from the sparse levels, the
+voxel queries with it) a stage of its own, in eval and, per step, in
+``train_split``.  Every KITTI training step takes ``chip_smoke.ZOO_TRAIN_B``
+= 4 scenes (the YAMLs' BATCH_SIZE_PER_GPU, but voxel_rcnn_car.yaml's 2).
 
 The card's name and power limit are printed first, as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them.
@@ -366,6 +373,7 @@ def profile_second(args, card, dev, log):
     from cagroup3d_tpu_torch.core.module import Ctx, flat_state
     from cagroup3d_tpu_torch.models import load_config
     name = args.config[len("kitti_"):]
+    name = {"voxel_rcnn": "voxel_rcnn_car"}.get(name, name)
     cfg = kitti_config() if name == "second" else load_config(
         ZOO_CFGS[name])
     model = kitti_model(name, cfg, dev, lift=True)
@@ -404,6 +412,10 @@ def profile_second(args, card, dev, log):
     model.predict = staged(model.predict, "boxes")
     if hasattr(model, "proposals"):
         model.proposals = staged(model.proposals, "proposals")
+    pool = getattr(getattr(model, "roi_head", None), "roi_grid_pool_voxel",
+                   None)
+    if pool is not None:                # Voxel R-CNN's RoI grid pool
+        model.roi_head.roi_grid_pool_voxel = staged(pool, "roi_pool")
     nms_mod.greedy_nms = timed(saved[0], "nms", times)
     nms_mod.overlap_matrix = timed(saved[1], "nms_overlap_matrix", times)
     try:
@@ -412,13 +424,16 @@ def profile_second(args, card, dev, log):
             for i in range(args.scenes):
                 b = batches[i % 3]
                 pts, pv = b["points"][0], b["points_valid"][0]
-                out, bev2d = model.forward_scene(P, S, Ctx(), pts, pv)
-                model.predict(P, S, Ctx(), out, bev2d, pts, pv)
+                ctx = Ctx()
+                out, bev2d = model.forward_scene(P, S, ctx, pts, pv)
+                model.predict(P, S, ctx, out, bev2d, pts, pv)
     finally:
         for mod, _ in mods:
             del mod.__dict__["forward"]
         for k in ("predict", "proposals"):
             model.__dict__.pop(k, None)
+        if pool is not None:
+            del model.roi_head.roi_grid_pool_voxel
         nms_mod.greedy_nms, nms_mod.overlap_matrix = saved
     # per scene: SECOND-IoU runs two NMS calls a scene (its proposals and
     # the final one), the others one
@@ -446,14 +461,14 @@ def profile_second(args, card, dev, log):
 def profile_second_train(args, name, cfg, card, dev, log):
     """``train`` and ``train_split`` of ``--config kitti_*``."""
     import torch
-    from chip_smoke import (KITTI_POINTS, STEPS_PER_EPOCH, anchor_tables,
-                            kitti_train_batch)
+    from chip_smoke import (KITTI_POINTS, STEPS_PER_EPOCH, ZOO_TRAIN_B,
+                            anchor_tables, kitti_train_batch)
     from cagroup3d_tpu_torch.core import nms as nms_mod
     from cagroup3d_tpu_torch.training.optimization import build_optimizer
     model = kitti_model(name, cfg, dev, lift=False)
     opt, _ = build_optimizer(model, cfg.OPTIMIZATION, STEPS_PER_EPOCH,
                              total_epochs=int(cfg.OPTIMIZATION.NUM_EPOCHS))
-    B = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    B = ZOO_TRAIN_B
     tb = [kitti_train_batch(cfg, range(20 + B * i, 20 + B * (i + 1)), dev,
                             KITTI_POINTS) for i in range(2)]
     head, inner = model.dense_head, defaultdict(list)
@@ -465,10 +480,14 @@ def profile_second_train(args, name, cfg, card, dev, log):
     head.loss = timed(head.loss, "loss", inner)
     saved_nms = nms_mod.greedy_nms
     if hasattr(model, "proposals"):
-        # SECOND-IoU's training proposals: the top 9000 anchors a scene
-        # through the greedy NMS
+        # SECOND-IoU's and Voxel R-CNN's training proposals: the top 9000
+        # anchors a scene through the greedy NMS
         model.proposals = timed(model.proposals, "proposals", inner)
         nms_mod.greedy_nms = timed(saved_nms, "proposal_nms", inner)
+    pool = getattr(getattr(model, "roi_head", None), "roi_grid_pool_voxel",
+                   None)
+    if pool is not None:
+        model.roi_head.roi_grid_pool_voxel = timed(pool, "roi_pool", inner)
     gen = torch.Generator().manual_seed(0)
     try:
         train_phase(lambda b: model.forward_train(b, gen)[0], opt, tb, B,
@@ -478,6 +497,8 @@ def profile_second_train(args, name, cfg, card, dev, log):
             t.__dict__.pop(meth, None)
         del head.__dict__["loss"]
         model.__dict__.pop("proposals", None)
+        if pool is not None:
+            del model.roi_head.roi_grid_pool_voxel
         nms_mod.greedy_nms = saved_nms
     # the first calls are the warm-up step's, the last the profiled step's
     n = len(tables) * B
@@ -496,6 +517,9 @@ def profile_second_train(args, name, cfg, card, dev, log):
             sum(per[0][i * B:(i + 1) * B]) for i in range(args.train_steps))
         extra = {"proposals_ms_per_scene": per[0],
                  "proposal_nms_ms_per_scene": per[1]}
+    if "roi_pool" in inner:             # one call a step
+        med["roi_pool"] = statistics.median(
+            inner["roi_pool"][1:args.train_steps + 1])
     # a step's assigner calls run head by head, scene by scene
     per_scene = [sum(inner["assigner"][s.start + h * B + j]
                      for h in range(len(tables)))
@@ -512,7 +536,8 @@ def main():
                                          "kitti_second", "kitti_pointpillar",
                                          "kitti_second_multihead",
                                          "kitti_second_iou",
-                                         "kitti_centerpoint"),
+                                         "kitti_centerpoint",
+                                         "kitti_voxel_rcnn"),
                     default="scannet")
     ap.add_argument("--scenes", type=int, default=9)
     ap.add_argument("--train-steps", type=int, default=3)

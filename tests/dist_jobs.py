@@ -14,7 +14,8 @@ import pickle
 import numpy as np
 import torch
 
-from chip_smoke import SMALL_KITTI_GRID, cpu_caps, tiny_model
+from chip_smoke import (SMALL_KITTI_GRID, cpu_caps, tiny_model,
+                        tiny_voxel_rcnn_head)
 
 
 def _save(out_dir, rank, obj):
@@ -159,6 +160,8 @@ def tiny_kitti_cfg(name, cfg):
     if name == "second_multihead":
         mc.DENSE_HEAD.SHARED_CONV_NUM_FILTER = 8
         mc.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 256
+    if name == "voxel_rcnn_car":
+        tiny_voxel_rcnn_head(mc.ROI_HEAD, 8, 16)
     if name == "second_iou":
         mc.ROI_HEAD.update(SHARED_FC=[16, 16], IOU_FC=[16])
         mc.ROI_HEAD.ROI_GRID_POOL.IN_CHANNEL = 32

@@ -389,3 +389,89 @@ def test_bev_conv_backward_bits_under_memory_pressure(dev, transposed):
         del held
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_voxel_rcnn_pool_bits(dev):
+    """Voxel R-CNN's voxel queries and RoI grid pool at voxel_rcnn_car.yaml's
+    widths on KITTI's grid ((11, 11, 8) key bits): four scenes' sparse
+    levels at the backbone's capacities (32768, 16384 and 8192 voxels of
+    32, 64 and 64 channels) and 128 RoIs a scene, in training (every BN
+    pooled over the scenes).  The voxel rows equal the CPU's on the same
+    grid points, and two calls give the same bits in the pooled features,
+    the BN updates and the gradients into the levels' features and the
+    pool's weights (the gathers' backward feeds K1's)."""
+    from cagroup3d_tpu_torch.core.module import Ctx, flat_state
+    from cagroup3d_tpu_torch.core.pointnet2_stack import voxel_query_offsets
+    from cagroup3d_tpu_torch.core.sparse import PAD_COORD, SparseTensor
+    from cagroup3d_tpu_torch.models import load_config
+    from cagroup3d_tpu_torch.models.roi_heads.voxelrcnn_head import \
+        VoxelRCNNHead
+    cfg = load_config("tools/cfgs/kitti_models/voxel_rcnn_car.yaml")
+    head = VoxelRCNNHead(cfg.MODEL.ROI_HEAD, 1, backbone_channels={
+        "x_conv2": 32, "x_conv3": 64, "x_conv4": 64},
+        voxel_size=[0.05, 0.05, 0.1],
+        point_cloud_range=[0, -40, -3, 70.4, 40, 1]).to(dev)
+    g = torch.Generator().manual_seed(5)
+    B, R = 4, 128
+    levels = {"x_conv2": (2, (704, 800, 21), 32768, 32),
+              "x_conv3": (4, (352, 400, 11), 16384, 64),
+              "x_conv4": (8, (176, 200, 5), 8192, 64)}
+    multis = [{} for _ in range(B)]
+    feats = {}
+    for name, (s, ext, cap, ch) in levels.items():
+        # voxels in a 20 x 20 m patch at x 20-40 m, y -10-10 m
+        lo = torch.tensor([int(20 / 0.05 / s), int(30 / 0.05 / s), 0])
+        hi = torch.tensor([int(40 / 0.05 / s), int(50 / 0.05 / s), ext[2]])
+        f = torch.randn(B, cap, ch, generator=g).abs()
+        feats[name] = f
+        for b in range(B):
+            lat = lo + (torch.rand(2 * cap, 3, generator=g) *
+                        (hi - lo)).to(torch.int32)
+            lat = torch.unique(lat, dim=0)[:cap]
+            lat = lat[torch.randperm(len(lat), generator=g)]
+            coords = torch.full((cap, 3), PAD_COORD, dtype=torch.int32)
+            coords[:len(lat)] = lat
+            valid = torch.arange(cap) < len(lat)
+            multis[b][name] = (coords, valid)
+    strides = {k: v[0] for k, v in levels.items()}
+    rois = torch.cat([torch.rand(B, R, 1, generator=g) * 20 + 20,
+                      torch.rand(B, R, 1, generator=g) * 20 - 10,
+                      torch.rand(B, R, 1, generator=g) * 2 - 2,
+                      torch.rand(B, R, 3, generator=g) * 3 + 1,
+                      torch.rand(B, R, 1, generator=g) * 6 - 3], -1).to(dev)
+    cot = torch.randn(B, R, 216 * head.pool_out_channels, generator=g).to(dev)
+    P, S = flat_state(head, "roi_head")
+    runs = []
+    with key_bits_scope((11, 11, 8)):
+        grid = head.get_global_grid_points(rois.reshape(-1, 7))
+        lvs = torch.tensor([0.05 * 4, 0.05 * 4, 0.1 * 4], device=dev)
+        lo = torch.tensor([0.0, -40.0, -3.0], device=dev)
+        lat = torch.floor((grid.reshape(B, -1, 3) - lo) / lvs).to(torch.int32)
+        coords, valid = multis[0]["x_conv3"]
+        offs = head.pools[1][0][0]
+        rows = voxel_query_offsets(coords.to(dev), valid.to(dev), lat[0],
+                                   torch.ones(lat.shape[1], dtype=torch.bool,
+                                              device=dev), offs)
+        want = voxel_query_offsets(coords, valid, lat[0].cpu(),
+                                   torch.ones(lat.shape[1], dtype=torch.bool),
+                                   offs)
+        assert torch.equal(rows.cpu(), want)
+        assert 0.05 < float((want >= 0).float().mean()) < 0.95
+        for _ in range(2):
+            head.zero_grad(set_to_none=True)
+            fs = {k: v.to(dev).requires_grad_() for k, v in feats.items()}
+            ms = [{k: SparseTensor(c.to(dev), fs[k][b], v.to(dev), 1)
+                   for k, (c, v) in m.items()} for b, m in enumerate(multis)]
+            ctx = Ctx(train=True)
+            out = head.roi_grid_pool_voxel(
+                P, S, ctx, rois, torch.ones(B, R, dtype=torch.bool,
+                                            device=dev), ms, strides)
+            (out * cot).sum().backward()
+            torch.cuda.synchronize()
+            runs.append([out.detach()] + [ctx.updates[k] for k in sorted(
+                ctx.updates)] + [fs[k].grad for k in sorted(fs)] + [
+                p.grad for _, p in sorted(head.named_parameters())
+                if p.grad is not None])
+    assert len(runs[0]) == len(runs[1]) > 30
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

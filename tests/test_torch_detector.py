@@ -16,6 +16,7 @@ another order); boxes and scores within 1e-3 absolute.
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import jax
@@ -261,13 +262,13 @@ def test_port_imports_no_jax():
     SECOND's KITTI eval and one training step (a synthetic tree's
     infos, the eval and the train loader with gt sampling, a tiny
     forward at KITTI's grid, the prediction dicts and the official
-    evaluation), and the tiny PointPillar, SECOND-multihead, SECOND-IoU
-    and CenterPoint of their YAMLs (``chip_smoke.tiny_zoo_config``: an eval
+    evaluation), and the tiny PointPillar, SECOND-multihead, SECOND-IoU,
+    CenterPoint and Voxel R-CNN of their YAMLs (``chip_smoke.tiny_zoo_config``: an eval
     forward and one training step each), and the imports of the ``demo``
     CLI, ``native_io`` (its library built or its fallback chosen) and the
-    headless renderer, run in a process where jax and the JAX package are
-    blocked."""
-    code = (
+    headless renderer, run in three processes (the indoor models, SECOND,
+    the zoo) where jax and the JAX package are blocked."""
+    prelude = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['cagroup3d_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -287,7 +288,8 @@ def test_port_imports_no_jax():
         "from cagroup3d_tpu_torch.datasets import native_io\n"
         "assert native_io.io_path() in ('native', 'numpy')\n"
         "import cagroup3d_tpu_torch.utils.commu_utils\n"
-        "from chip_smoke import synthetic_train_batch\n"
+        "from chip_smoke import synthetic_train_batch\n")
+    indoor = (
         "for name in ('scannet', 'sunrgbd'):\n"
         "    cfg = load_config(f'tools/cfgs/{name}_models/CAGroup3D.yaml')\n"
         "    mc, names = cfg.MODEL, cfg.CLASS_NAMES\n"
@@ -332,7 +334,8 @@ def test_port_imports_no_jax():
         "    assert torch.isfinite(out['pred_boxes']).all()\n"
         "    opt, _ = build_optimizer(m, cfg.OPTIMIZATION, 10)\n"
         "    tb = make_train_step(m, opt, device='cpu')(b)[1]\n"
-        "    assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n"
+        "    assert all(bool(torch.isfinite(v)) for v in tb.values()), tb\n")
+    kitti = (
         "import tempfile\n"
         "import cagroup3d_tpu_torch.tools.create_infos\n"
         "from cagroup3d_tpu_torch.datasets import build_dataloader\n"
@@ -373,7 +376,8 @@ def test_port_imports_no_jax():
         "    loss, tb = make_train_step(m, opt, device='cpu')("
         "{k: torch.from_numpy(v) for k, v in b.items() if k != 'frame_id'})\n"
         "    assert bool(torch.isfinite(loss)), tb\n"
-        "    assert float(tb['rpn_loss_loc']) > 0, tb\n"
+        "    assert float(tb['rpn_loss_loc']) > 0, tb\n")
+    zoo = (
         "from chip_smoke import ZOO, ZOO_CFGS, box_term, kitti_request, "
         "kitti_train_batch, tiny_zoo_config, zoo_model\n"
         "for name in ZOO:\n"
@@ -390,11 +394,33 @@ def test_port_imports_no_jax():
         "    assert bool(torch.isfinite(loss)), tb\n"
         "    assert float(box_term(tb)) > 0, tb\n"
         "    assert ('rcnn_loss_iou' in tb) == (name == 'second_iou'), tb\n"
+        "    assert ('rcnn_loss_corner' in tb) == (name == 'voxel_rcnn_car'),"
+        " tb\n")
+    epilogue = (
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['cagroup3d_tpu'] is None\n"
         "print('OK')\n")
+    # three processes at once (the indoor models, SECOND's KITTI path, the
+    # zoo: 12, 28 and 30 s alone), each blocking jax and the JAX package
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-2000:]
-    assert res.stdout.strip().endswith("OK")
+    runs = []
+    try:
+        for part in (indoor, kitti, zoo):
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+                "w+")
+            runs.append((subprocess.Popen(
+                [sys.executable, "-c", prelude + part + epilogue], cwd=REPO,
+                env=env, stdout=out, stderr=err, text=True), out, err))
+        for proc, out, err in runs:
+            rc = proc.wait(timeout=300)
+            out.seek(0)
+            err.seek(0)
+            assert rc == 0, err.read()[-2000:]
+            assert out.read().strip().endswith("OK")
+    finally:
+        for proc, out, err in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()

@@ -1,6 +1,6 @@
 """Training and evaluation of KITTI's anchor family over several processes
-(``--dist``) on the CPU: SECOND, PointPillar, SECOND-multihead and
-SECOND-IoU, two ranks spawned over gloo (``chip_smoke.run_ranks``; their
+(``--dist``) on the CPU: SECOND, PointPillar, SECOND-multihead,
+SECOND-IoU, CenterPoint and Voxel R-CNN, two ranks spawned over gloo (``chip_smoke.run_ranks``; their
 jobs are the JAX-free ``tests/dist_jobs.py``), each spawn bounded by its
 process group's timeout and a join limit.
 
@@ -10,7 +10,7 @@ batch, the loss over it).
 
 1. ``make_train_step`` over 2 ranks of one scene against the port's one
    process at B = 2 (``chip_smoke.dist_step_compare``, one spawn for the
-   four tiny models on a 16 x 16 m range, ``chip_smoke.kitti_step_case``):
+   tiny models of ``chip_smoke.KITTI_DIST`` on a 16 x 16 m range, ``chip_smoke.kitti_step_case``):
    the first step's loss and every tb term within 1e-5, the ranks'
    parameters and BN buffers the same bits after two steps, every
    module's gradients within 2e-2 in norm.
@@ -92,7 +92,7 @@ def test_step_equals_one_process(name, step_reports):
     assert rep["ranks_same_bits"]
     mods = {"vfe.", "backbone_2d.", "dense_head."} if name == "pointpillar" \
         else {"backbone_3d.", "backbone_2d.", "dense_head."}
-    if name == "second_iou":
+    if name in ("second_iou", "voxel_rcnn_car"):
         mods.add("roi_head.")
     assert set(rep["grads"]) == mods
     for pre, g in rep["grads"].items():
@@ -306,8 +306,8 @@ def collective_order(model, batch, monkeypatch, rank):
                                                         anchor_head_multi,
                                                         center_head)
     from cagroup3d_tpu_torch.models.detectors import second_net
-    from cagroup3d_tpu_torch.models.roi_heads import second_head
-    for mod in (norm, second_net, second_head, anchor_head,
+    from cagroup3d_tpu_torch.models.roi_heads import pvrcnn_head, second_head
+    for mod in (norm, second_net, second_head, pvrcnn_head, anchor_head,
                 anchor_head_multi, center_head, commu_utils):
         monkeypatch.setattr(mod, "group_size", lambda group: 2)
     monkeypatch.setattr(second_net, "group_rank", lambda group: rank)

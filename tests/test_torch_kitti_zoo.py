@@ -65,6 +65,7 @@ from test_centerpoint import centerpoint_cfg
 from test_nuscenes import multihead_cfg as nusc_multihead_cfg
 from test_outdoor import outdoor_batch, pillar_cfg, second_cfg
 from test_second_iou import second_iou_cfg
+from test_voxelrcnn import voxelrcnn_cfg
 
 torch.set_num_threads(1)
 DEFAULT_BITS = (10, 10, 10)
@@ -72,7 +73,8 @@ NAMES = ["Car", "Pedestrian", "Cyclist"]
 YAMLS = {"centerpoint": "tools/cfgs/kitti_models/centerpoint.yaml",
          "pointpillar": "tools/cfgs/kitti_models/pointpillar.yaml",
          "second_multihead": "tools/cfgs/kitti_models/second_multihead.yaml",
-         "second_iou": "tools/cfgs/kitti_models/second_iou.yaml"}
+         "second_iou": "tools/cfgs/kitti_models/second_iou.yaml",
+         "voxel_rcnn_car": "tools/cfgs/kitti_models/voxel_rcnn_car.yaml"}
 
 
 def _t(x):
@@ -113,8 +115,16 @@ def iou_cfg(dp_ratio=0.3):
     return c
 
 
+def vrcnn_cfg(dp_ratio=0.3):
+    c = voxelrcnn_cfg()
+    c.ROI_HEAD.DP_RATIO = dp_ratio
+    return c
+
+
 CFGS = {"centerpoint": centerpoint_cfg, "pointpillar": pillar_cfg,
-        "second_multihead": multihead_cfg, "second_iou": iou_cfg}
+        "second_multihead": multihead_cfg, "second_iou": iou_cfg,
+        "voxel_rcnn_car": vrcnn_cfg}
+DP_CFGS = ("second_iou", "voxel_rcnn_car")      # take a DP_RATIO
 
 
 @pytest.fixture(autouse=True)
@@ -142,7 +152,7 @@ def _models(name, dp_ratio=0.3):
     """(JAX model, P, S, port model with the same parameters and BN
     statistics) of a tiny configuration."""
     cfg_fn = CFGS[name]
-    cfg = cfg_fn(dp_ratio) if name == "second_iou" else cfg_fn()
+    cfg = cfg_fn(dp_ratio) if name in DP_CFGS else cfg_fn()
     prev = (jhash.XBITS, jhash.YBITS, jhash.ZBITS)
     jhash.set_key_bits(*DEFAULT_BITS)
     try:
@@ -256,6 +266,10 @@ def test_params_match_jax_init_names_and_shapes(name):
             [70400] * 3
     if name == "second_iou":
         assert pm.roi_head.in_ch * 49 == 25088
+    if name == "voxel_rcnn_car":
+        assert pm.roi_head.pool_out_channels * 216 == 20736
+        assert [o.shape for g in pm.roi_head.pools for o, _, _ in g] == \
+            [(16, 3)] * 3
     if name == "centerpoint":
         assert pm.dense_head.fmap_hw == jm.dense_head.fmap_hw == (200, 176)
         assert pm.dense_head.voxel_size == jm.dense_head.voxel_size

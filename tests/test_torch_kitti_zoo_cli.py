@@ -1,6 +1,6 @@
 """The port's CLIs, dataset and key bits on centerpoint.yaml,
-pointpillar.yaml, second_multihead.yaml and second_iou.yaml (``--device
-cpu``, tiny widths,
+pointpillar.yaml, second_multihead.yaml, second_iou.yaml and
+voxel_rcnn_car.yaml (``--device cpu``, tiny widths,
 synthetic KITTI trees from ``utils/synthetic.write_kitti_tree``): the
 ``train`` CLI trains each YAML's model for one epoch, its checkpoint holds
 the JAX init's names and shapes (``jax.eval_shape``) and the ``test`` CLI
@@ -69,9 +69,10 @@ def test_train_and_test_cli(name, tree, monkeypatch, tmp_path):
     jcfg = tiny(name, jload_cfg(cfg_file, JEasyDict()))
     jcfg.DATA_CONFIG.DATA_PATH = str(tree)
     prev = (jhash.XBITS, jhash.YBITS, jhash.ZBITS)
+    names = list(jcfg.CLASS_NAMES)      # voxel_rcnn_car.yaml: Car only
     try:
-        jds, _, _ = jbuild_loader(jcfg.DATA_CONFIG, NAMES, 1, training=False)
-        jm = jbuild(jcfg.MODEL, 3, dataset=jds)
+        jds, _, _ = jbuild_loader(jcfg.DATA_CONFIG, names, 1, training=False)
+        jm = jbuild(jcfg.MODEL, len(names), dataset=jds)
     finally:
         jhash.set_key_bits(*prev)
     jP, jS = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
